@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main path -- ResNet-18 strict integer inference at
-224x224, full width, 1000 classes -- through the entry points a user calls
-(`load_deploy_bundle`, `IntEngine.condition_input`, `IntEngine.__call__`),
-on random weights made from the seed:
+Drives the port's two main paths -- ResNet-18 and MobileNetV2 strict integer
+inference at 224x224, full width, 1000 classes -- through the entry points a
+user calls (`load_deploy_bundle`, `model_from_topology`,
+`IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
+from the seed:
 
-  build    compile every CUDA kernel of the path from f8net_tpu_torch/csrc
-  bundle   synthetic baked ResNet-18 (int8 weights, int32 biases, fraclens
-           calibrated on the card), written as a deploy bundle and loaded back
-  engine   batch 8 through the kernels and through their plain PyTorch
-           versions: logits bitwise equal, 19 K2 + 1 K3 + 1 K1 launches per
-           forward, non-degenerate activations and logits
-  kernels  every kernel call of that forward (plus K1's requant8 epilogue at a
-           1x1-conv shape) against its plain version on the same inputs
+  build    compile every CUDA kernel of the paths from f8net_tpu_torch/csrc
+  bundle   per path, a synthetic baked model (int8 weights, int32 biases,
+           fraclens calibrated on the card), written as a deploy bundle and
+           loaded back
+  engine   per path, batch 8 through the kernels and through their plain
+           PyTorch versions: logits bitwise equal, launches per forward as
+           LAUNCHES_PER_FORWARD (ResNet-18: 19 K2 + 1 K3 + 1 K1; MobileNetV2:
+           1 K2 + 5 K4 + 11 K1 + 12 K5), non-degenerate logits
+  kernels  every kernel call of those forwards (plus K1's requant8 epilogue at
+           a 1x1-conv shape) against its plain version on the same inputs
   timing   device time (torch.profiler) of each kernel call, of its plain
-           version and, for K1, of torch._int_mm; whole-forward images/s,
-           device-busy share and device-time breakdown at batch 8 and 64
+           version and, for K1, of torch._int_mm; per path, whole-forward
+           images/s, device-busy share and device-time breakdown at batch 8
+           and 64
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -43,13 +47,14 @@ import torch
 import torch.nn.functional as F
 
 from f8net_tpu_torch.engine import IntEngine
-from f8net_tpu_torch.engine.int_engine import avgpool_shift_for
 from f8net_tpu_torch.export import (
     load_deploy_bundle, model_from_topology, save_deploy_bundle,
 )
 from f8net_tpu_torch.models import get_model
+from f8net_tpu_torch.nn.pool import avgpool_shift_for
 from f8net_tpu_torch.nn.spec import ConvBNSpec
-from f8net_tpu_torch.ops import _build, conv as conv_ops, gemm as gemm_ops, stem as stem_ops
+from f8net_tpu_torch.ops import _build, conv as conv_ops, dw as dw_ops, gemm as gemm_ops
+from f8net_tpu_torch.ops import ir_block as ir_ops, stem as stem_ops
 from f8net_tpu_torch.quant import LayerPlan, QuantPlan
 from f8net_tpu_torch.utils import QuantConfig
 
@@ -57,9 +62,13 @@ IMAGE_SIZE = 224
 BATCH = 8
 TIMED_BATCHES = (8, 64)
 WEIGHT_FL = 7
-UNSIGNED_STD_COEFF = 70.0  # F8Net's sigma -> fraclen rule for unsigned inputs
+# F8Net's sigma -> fraclen rule, std metric (copy of f8net_tpu/ops/fxp.py:34-35)
+SIGNED_STD_COEFF = 40.0
+UNSIGNED_STD_COEFF = 70.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak, published
+CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published:
+# the CUDA cores' fastest rate, so a least time for their int32 multiply-adds
 
 CFG = QuantConfig(
     format_from_metric=True, metric="std", quant_bias=True, quant_avgpool=True,
@@ -79,8 +88,26 @@ KERNELS = {
         fn=stem_ops.stem_pool, plain=stem_ops.stem_pool_plain,
         source="f8net_tpu_torch/csrc/stem_pool.cu", replaces="f8net_tpu/ops/pallas_stem.py:292",
     ),
+    "dw_int8": dict(
+        fn=dw_ops.dw_int8, plain=dw_ops.dw_int8_plain,
+        source="f8net_tpu_torch/csrc/dw_conv.cu", replaces="f8net_tpu/ops/pallas_dw.py:200",
+    ),
+    "ir_block": dict(
+        fn=ir_ops.fused_ir_block, plain=ir_ops.fused_ir_block_plain,
+        source="f8net_tpu_torch/csrc/ir_block.cu",
+        replaces="f8net_tpu/ops/pallas_ir_block.py:317",
+    ),
 }
-LAUNCHES_PER_FORWARD = {"conv_int8": 19, "stem_pool": 1, "int8_gemm": 1}
+# the engine's product functions, by kernel: IntEngine attribute names
+ENGINE_ATTRS = {
+    "int8_gemm": "_gemm", "conv_int8": "_convk", "stem_pool": "_stemk",
+    "dw_int8": "_dwk", "ir_block": "_irk",
+}
+# kernel launches per forward of each main path; kernels not named: 0
+LAUNCHES_PER_FORWARD = {
+    "resnet18": {"conv_int8": 19, "stem_pool": 1, "int8_gemm": 1},
+    "mobilenet_v2": {"conv_int8": 1, "dw_int8": 5, "int8_gemm": 11, "ir_block": 12},
+}
 
 
 def log(*parts) -> None:
@@ -90,40 +117,51 @@ def log(*parts) -> None:
 # -- synthetic bundle ---------------------------------------------------------
 
 
-def fraclen_for(sigma: float) -> int:
-    """Unsigned input fraclen from the input's std: floor(log2(70 / sigma)),
-    clipped to [0, 8]."""
-    return int(min(max(math.floor(math.log2(UNSIGNED_STD_COEFF / sigma)), 0), 8))
+def fraclen_for(sigma: float, signed: bool) -> int:
+    """Input fraclen from the input's std: floor(log2(coeff / sigma)),
+    clipped to [0, 8 - signed] (f8net_tpu/ops/fxp.py:metric2fraclen)."""
+    coeff = SIGNED_STD_COEFF if signed else UNSIGNED_STD_COEFF
+    return int(min(max(math.floor(math.log2(coeff / sigma)), 0), 8 - int(signed)))
 
 
 def _nchw_conv(x, w_hwio, b, spec: ConvBNSpec):
     return F.conv2d(
-        x, w_hwio.permute(3, 2, 0, 1), b, stride=spec.stride, padding=spec.padding
+        x, w_hwio.permute(3, 2, 0, 1), b, stride=spec.stride, padding=spec.padding,
+        groups=spec.groups,
     )
 
 
-def float_forward(model, w_real, b_real, images):
+def float_forward(model, w_real, b_real, x):
     """The real-valued network the synthetic integer model approximates,
-    in float32 on the images' device.  Returns ({layer: std of its input},
-    logits)."""
-    g = model.graph
-    sig = {}
-    x = torch.round(255.0 * images).permute(0, 3, 1, 2) / 256.0  # the wire input's value
-    sig["head"] = float(x.std())
-    a = F.relu(_nchw_conv(x, w_real["head"], b_real["head"], g["head"]))
-    a = F.max_pool2d(a, 3, 2, 1)
-    for meta in model.blocks:
-        v = a
+    in float32 on the input's device; `x` is the head's input value, NCHW.
+    ReLU follows the head, every body conv but the last, the ResNet residual
+    add and the MobileNetV2 tail; MobileNetV2's project and add have none.
+    Returns ({layer: std of its input}, logits)."""
+    g, sig = model.graph, {}
+
+    def conv(name, v):
+        sig[name] = float(v.std())
+        return _nchw_conv(v, w_real[name], b_real[name], g[name])
+
+    def body(meta, v):
         for name in meta.body:
-            sig[name] = float(v.std())
-            v = _nchw_conv(v, w_real[name], b_real[name], g[name])
+            v = conv(name, v)
             if name != meta.body[-1]:
                 v = F.relu(v)
-        s = a
-        if meta.shortcut is not None:
-            sig[meta.shortcut] = float(a.std())
-            s = _nchw_conv(a, w_real[meta.shortcut], b_real[meta.shortcut], g[meta.shortcut])
-        a = F.relu(v + s)
+        return v
+
+    a = F.relu(conv("head", x))
+    if model.name == "mobilenet_v2":
+        for meta in model.blocks:
+            v = body(meta, a)
+            a = v + a if meta.residual else v
+        a = F.relu(conv("tail", a))
+    else:
+        a = F.max_pool2d(a, 3, 2, 1)
+        for meta in model.blocks:
+            v = body(meta, a)
+            s = a if meta.shortcut is None else conv(meta.shortcut, a)
+            a = F.relu(v + s)
     pooled = a.sum((2, 3)) / 2.0 ** avgpool_shift_for(model.pool_kernel)
     sig["classifier"] = float(pooled.std())
     return sig, pooled @ w_real["classifier"] + b_real["classifier"]
@@ -132,40 +170,53 @@ def float_forward(model, w_real, b_real, images):
 def synthetic_bundle(model, seed: int, images):
     """Random int8 weights with a std matched to each layer's fan-in (He),
     real biases, input fraclens chosen from the std of each layer's input in
-    one float pass on the images' device, and int32 biases at each layer's
-    accumulator scale.  Returns (plan records, numpy params, float logits)."""
+    one float pass on the images' device (signed where the layer's input is
+    double-side), and int32 biases at each layer's accumulator scale.
+    Returns (plan records, numpy params, float logits)."""
     rng = np.random.RandomState(seed)
     w_int, b_real, w_real = {}, {}, {}
     dev = images.device
+    # MobileNetV2's projects feed a residual stream with no ReLU: a gain of
+    # 1 instead of He's 2 keeps that stream from growing block by block, as
+    # the trained network's folded BatchNorm does
+    linear_out = {m.body[-1] for m in model.blocks} if model.name == "mobilenet_v2" else set()
     for name in model.graph.names():
         spec = model.graph[name]
         shape = spec.weight_shape()
         fan_in = int(np.prod(shape[:-1]))
-        std = math.sqrt(2.0 / fan_in) * 2**WEIGHT_FL
+        std = math.sqrt((1.0 if name in linear_out else 2.0) / fan_in) * 2**WEIGHT_FL
         w_int[name] = np.clip(np.round(rng.standard_normal(shape) * std), -127, 127).astype(np.int8)
         b_real[name] = (0.05 * rng.standard_normal(shape[-1])).astype(np.float32)
         w_real[name] = torch.from_numpy(w_int[name].astype(np.float32) / 2**WEIGHT_FL).to(dev)
+    normalize = model.cfg.normalize
+    # the head's input value: the wire's round(255 x) at fraclen 8, or the
+    # normalized image itself
+    x = images if normalize else torch.round(255.0 * images) / 256.0
     sig, logits = float_forward(
-        model, w_real, {k: torch.from_numpy(v).to(dev) for k, v in b_real.items()}, images
+        model, w_real, {k: torch.from_numpy(v).to(dev) for k, v in b_real.items()},
+        x.permute(0, 3, 1, 2),
     )
     records, arrays = [], {}
     for name in model.graph.names():
-        in_fl = 8 if name == "head" else fraclen_for(sig[name])  # head: round(255 x) at fl 8
+        signed = bool(model.graph[name].double_side)
+        in_fl = 8 if name == "head" and not normalize else fraclen_for(sig[name], signed)
         b = np.round(b_real[name].astype(np.float64) * 2.0 ** (in_fl + WEIGHT_FL))
-        records.append((name, in_fl, WEIGHT_FL, False))
+        records.append((name, in_fl, WEIGHT_FL, signed))
         arrays[name] = {"w": w_int[name], "b": b.astype(np.int32)}
     return records, arrays, logits
 
 
-def load_synthetic_model(seed: int, image_size: int, num_classes: int, device, images):
-    """Build the synthetic bundle, write it, and load it back through the
-    serving entry (load_deploy_bundle)."""
-    model = get_model("resnet18", CFG, num_classes=num_classes, image_size=image_size)
+def load_synthetic_model(
+    seed: int, image_size: int, num_classes: int, device, images, model_name="resnet18", cfg=CFG
+):
+    """Build the synthetic bundle of `model_name`, write it, and load it back
+    through the serving entry (load_deploy_bundle, model_from_topology)."""
+    model = get_model(model_name, cfg, num_classes=num_classes, image_size=image_size)
     records, arrays, float_logits = synthetic_bundle(model, seed, images)
     plan = QuantPlan(tuple(LayerPlan(*r) for r in records))
     params = {k: {kk: torch.from_numpy(v) for kk, v in d.items()} for k, d in arrays.items()}
     with tempfile.TemporaryDirectory() as tmp:
-        path = save_deploy_bundle(f"{tmp}/resnet18_synthetic", model, plan, params)
+        path = save_deploy_bundle(f"{tmp}/{model_name}_synthetic", model, plan, params)
         topo, plan2, params2 = load_deploy_bundle(path, device=device)
     if plan2 != plan:
         raise AssertionError("bundle round trip changed the plan")
@@ -184,7 +235,7 @@ class Recorder:
 
     def __init__(self, engine: IntEngine):
         self.calls = []
-        for attr, name in (("_gemm", "int8_gemm"), ("_convk", "conv_int8"), ("_stemk", "stem_pool")):
+        for name, attr in ENGINE_ATTRS.items():
             setattr(engine, attr, self._wrap(name, getattr(engine, attr)))
 
     def _wrap(self, name, fn):
@@ -210,8 +261,8 @@ class RequantStats:
                 self._add(plan, out)
             return out
 
-        def conv(name, act, pack_output_for=None):
-            out = conv_int(name, act, pack_output_for)
+        def conv(name, act, pack_output_for=None, **kw):
+            out = conv_int(name, act, pack_output_for, **kw)
             if pack_output_for is not None:
                 self._add(plan, out)
             return out
@@ -238,14 +289,17 @@ def launches():
     return {name: k["fn"].launches for name, k in KERNELS.items()}
 
 
+def expected_launches(path: str):
+    return {name: LAUNCHES_PER_FORWARD[path].get(name, 0) for name in KERNELS}
+
+
 def engine_phase(eng: IntEngine, x):
     """One forward through the kernels, launches counted, and one through
     the plain versions with every product's inputs recorded.  Returns
     (kernel logits, plain logits, launches, recorded calls, requant stats)."""
     ref = IntEngine(eng.model, eng.plan, eng.params, device=eng.device)
-    ref._gemm = gemm_ops.int8_gemm_plain
-    ref._convk = conv_ops.conv_int8_plain
-    ref._stemk = stem_ops.stem_pool_plain
+    for name, attr in ENGINE_ATTRS.items():
+        setattr(ref, attr, KERNELS[name]["plain"])
     rec, stats = Recorder(ref), RequantStats(ref)
     reset_launches()
     logits = eng(x)
@@ -276,25 +330,32 @@ def nbytes(*ts) -> int:
 
 
 def work(name, args, kw, out):
-    """(bytes, operations) the call must move and do: each input read once,
-    the output written once; 2 operations per multiply-add."""
+    """(bytes, tensor-core operations, CUDA-core operations) the call must
+    move and do: each input read once, the output written once; 2 operations
+    per multiply-add.  Products over channels are tensor-core work; the
+    depthwise taps (K4, K5's middle) and K3's C = 3 stem are not."""
     x, w = args[0], args[1]
+    tensor = core = 0
     if name == "int8_gemm":
-        macs = x.shape[0] * w.shape[0] * w.shape[1]
+        tensor = x.shape[0] * w.shape[0] * w.shape[1]
     elif name == "conv_int8":
-        macs = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
+        tensor = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
+    elif name == "dw_int8":
+        core = out.numel() * w.shape[0] * w.shape[1]
+    elif name == "ir_block":
+        w1, wd, w2 = args[1], args[3], args[5]
+        pixels = out.numel() // w2.shape[1]
+        tensor, core = pixels * (w1.numel() + w2.numel()), pixels * wd.numel()
     else:
         oh, ow, _, _ = stem_ops.stem_out_hw(x.shape[1], x.shape[2])
-        macs = x.shape[0] * oh * ow * w.numel()
-    return nbytes(*args, out), 2 * macs
+        core = x.shape[0] * oh * ow * w.numel()
+    return nbytes(*(a for a in args if a is not None), out), 2 * tensor, 2 * core
 
 
-def bound_ms(nb, ops) -> float:
-    return 1e3 * max(nb / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S)
-
-
-def bound_by(nb, ops) -> str:
-    return "bytes" if nb / HBM_BYTES_PER_S > ops / INT8_OPS_PER_S else "operations"
+def bound_s(nb, tensor_ops, core_ops):
+    """(seconds for the bytes, seconds for the operations) at the card's
+    peaks; tensor and CUDA cores run side by side, so the slower counts."""
+    return nb / HBM_BYTES_PER_S, max(tensor_ops / INT8_OPS_PER_S, core_ops / CORE_OPS_PER_S)
 
 
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -314,21 +375,33 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def profile(run, tries: int = 3):
+    """key_averages of one torch.profiler session (device activity) around
+    `run()`, after one warm-up run.  A session that records no device time
+    is made again, up to `tries` sessions; then it raises."""
+    run()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        if sum(e.self_device_time_total for e in ka) > 0:
+            return ka
+        log("  torch.profiler recorded no device time; profiling again")
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} sessions")
+
+
 def device_ms(fn, reps: int = 10):
     """Device time per call: the CUDA kernel time torch.profiler records
-    over `reps` calls, divided by reps.  Returns (ms, key_averages); raises
-    when the profiler recorded no device time."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    over `reps` calls, divided by reps.  Returns (ms, key_averages)."""
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    us = sum(e.self_device_time_total for e in ka)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / reps / 1e3, ka
+
+    ka = profile(run)
+    return sum(e.self_device_time_total for e in ka) / reps / 1e3, ka
 
 
 def compare(name, args, kw):
@@ -355,6 +428,9 @@ def compare(name, args, kw):
 
 def describe(args, kw) -> str:
     shapes = "x".join(str(tuple(a.shape)) for a in args[:2])
+    if len(args) > 5:  # K5: input x w1 x wd x w2, carry or not
+        shapes = "x".join(str(tuple(args[i].shape)) for i in (0, 1, 3, 5))
+        shapes += " carry" if len(args) > 7 and args[7] is not None else ""
     opts = ",".join(f"{k}={v}" for k, v in sorted(kw.items()))
     return f"{shapes} {opts}"
 
@@ -379,6 +455,74 @@ def smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+def check_path(path: str, seed: int, images, device):
+    """The bundle, engine and kernels phases of one main path.  Returns
+    (engine, launches per forward, [(kernel, args, kwargs, output, max abs
+    err)] of every kernel call of the forward)."""
+    model, plan, params, float_logits = load_synthetic_model(
+        seed, IMAGE_SIZE, 1000, device, images[:BATCH], model_name=path
+    )
+    log(f"{path} bundle: fraclens " + " ".join(f"{p.name}={p.input_fl}" for p in plan.layers))
+    eng = IntEngine(model, plan, params, device=device)
+    x = eng.condition_input(images[:BATCH])
+    logits, logits_ref, counts, calls, stats = engine_phase(eng, x)
+    checked = []
+    for name, cargs, kw in calls:
+        out, err = compare(name, cargs, kw)
+        checked.append((name, cargs, kw, out, err))
+        log(f"{path} kernel {name} {describe(cargs, kw)}: equal to its plain version")
+    check_logits(logits, logits_ref, BATCH, 1000)
+    want = expected_launches(path)
+    if counts != want:
+        raise AssertionError(f"{path}: launches per forward {counts}, expected {want}")
+    top1 = (logits.argmax(1) == float_logits.argmax(1)).float().mean().item()
+    log(f"{path} engine: logits bitwise equal to the plain path; launches {counts}; "
+        f"top-1 agreement with the float network {top1:.3f}")
+    for name, clamped, zero in stats:
+        log(f"  {path} requant -> {name}: clamped {clamped:.4f} zero {zero:.4f}")
+    return eng, counts, checked
+
+
+def time_call(name, cargs, kw, out, reps: int, plain_reps: int = 3):
+    """(device ms, call ms, plain device ms, bytes, tensor ops, core ops) of
+    one kernel call.  One profiler session covers `reps` kernel calls and
+    `plain_reps` plain ones: the port's kernels are the f8:: entries, the
+    plain version everything else.  call ms = CUDA-event time of
+    back-to-back wrapper calls, which includes the host's per-call
+    overhead."""
+    k = KERNELS[name]
+
+    def run():
+        for _ in range(reps):
+            k["fn"](*cargs, **kw)
+        for _ in range(plain_reps):
+            k["plain"](*cargs, **kw)
+
+    ka = profile(run)
+    ours = sum(e.self_device_time_total for e in ka if "f8::" in e.key)
+    rest = sum(e.self_device_time_total for e in ka if "f8::" not in e.key)
+    if ours <= 0 or rest <= 0:
+        raise RuntimeError(f"{name}: the profiler missed the kernel or its plain version")
+    call_ms = time_ms(lambda: k["fn"](*cargs, **kw), reps=2 * reps)
+    return (ours / reps / 1e3, call_ms, rest / plain_reps / 1e3) + work(name, cargs, kw, out)
+
+
+def time_forward(path: str, eng: IntEngine, images, card: str) -> None:
+    """Wall time (CUDA events), device-busy time (profiler) and where the
+    device time goes, for one forward at each timed batch."""
+    for b in TIMED_BATCHES:
+        xb = eng.condition_input(images[:b])
+        wall = time_ms(lambda: eng(xb), reps=5, rounds=5)
+        busy, ka = device_ms(lambda: eng(xb), reps=5)
+        log(f"{path} forward: batch {b}: {wall:.3f} ms, {1e3 * b / wall:.1f} images/s, device "
+            f"busy {busy:.4f} ms, idle share {1 - busy / wall:.3f} ({card})")
+        ours = sum(e.self_device_time_total for e in ka if "f8::" in e.key) / 5e3
+        log(f"  {path} forward batch {b}: port kernels {ours:.4f} ms of device time per forward")
+        for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {path} forward batch {b}: {e.self_device_time_total / 5e3:.4f} ms, "
+                f"{e.count // 5} launches: {e.key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -406,87 +550,57 @@ def main(argv=None) -> int:
     images = torch.from_numpy(
         rng.rand(max(TIMED_BATCHES), IMAGE_SIZE, IMAGE_SIZE, 3).astype(np.float32)
     ).to(device)
-    model, plan, params, float_logits = load_synthetic_model(
-        args.seed, IMAGE_SIZE, 1000, device, images[:BATCH]
-    )
-    log("bundle: fraclens " + " ".join(f"{p.name}={p.input_fl}" for p in plan.layers))
+    paths = {path: check_path(path, args.seed, images, device) for path in LAUNCHES_PER_FORWARD}
 
-    eng = IntEngine(model, plan, params, device=device)
-    x = eng.condition_input(images[:BATCH])
-    logits, logits_ref, counts, calls, stats = engine_phase(eng, x)
-
-    # kernels: every kernel call of that forward, on its recorded inputs,
-    # plus K1's requant8 epilogue at ResNet-50's 1x1-conv shape
-    # (M = 8*56*56, K = 64, N = 256)
+    # K1's requant8 epilogue at ResNet-50's 1x1-conv shape (M = 8*56*56,
+    # K = 64, N = 256): checked and timed, not a main-path call
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     extra = (
-        "int8_gemm",
-        (
-            torch.randint(-128, 128, (8 * 56 * 56, 64), generator=g, dtype=torch.int8).to(device),
-            torch.randint(-40, 41, (64, 256), generator=g, dtype=torch.int8).to(device),
-            torch.randint(-(1 << 14), 1 << 14, (256,), generator=g, dtype=torch.int32).to(device),
-        ),
-        dict(epilogue="requant8", net=9, out_signed=False),
+        torch.randint(-128, 128, (8 * 56 * 56, 64), generator=g, dtype=torch.int8).to(device),
+        torch.randint(-40, 41, (64, 256), generator=g, dtype=torch.int8).to(device),
+        torch.randint(-(1 << 14), 1 << 14, (256,), generator=g, dtype=torch.int32).to(device),
     )
-    checked = []
-    for name, cargs, kw in calls + [extra]:
-        out, err = compare(name, cargs, kw)
-        checked.append((name, cargs, kw, out, err))
-        log(f"kernel {name} {describe(cargs, kw)}: equal to its plain version")
-
-    check_logits(logits, logits_ref, BATCH, 1000)
-    if counts != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"launches per forward {counts}, expected {LAUNCHES_PER_FORWARD}")
-    top1 = (logits.argmax(1) == float_logits.argmax(1)).float().mean().item()
-    log(f"engine: logits bitwise equal to the plain path; launches {counts}; "
-        f"top-1 agreement with the float network {top1:.3f}")
-    for name, clamped, zero in stats:
-        log(f"  requant -> {name}: clamped {clamped:.4f} zero {zero:.4f}")
+    extra_kw = dict(epilogue="requant8", net=9, out_signed=False)
+    extra_out, _ = compare("int8_gemm", extra, extra_kw)
+    log(f"kernel int8_gemm {describe(extra, extra_kw)}: equal to its plain version")
 
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
-    # timing: each call of the forward; a kernel's row sums its calls.
-    # ms = device time; call_ms = CUDA-event time of back-to-back wrapper
-    # calls, which includes the host's per-call overhead
-    table = {n: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
-             for n in KERNELS}
-    for i, (name, cargs, kw, out, err) in enumerate(checked):
-        ms, _ = device_ms(lambda: KERNELS[name]["fn"](*cargs, **kw))
-        call_ms = time_ms(lambda: KERNELS[name]["fn"](*cargs, **kw))
-        plain_ms, _ = device_ms(lambda: KERNELS[name]["plain"](*cargs, **kw), reps=3)
-        nb, ops = work(name, cargs, kw, out)
-        log(f"time {name} {describe(cargs, kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms(nb, ops):.4f} ms ({bound_by(nb, ops)}), "
-            f"{nb} bytes, {ops} ops")
-        if i == len(calls):
-            continue  # not a main-path call: reported, not summed
-        row = table[name]
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += ms
-        row["plain_ms"] += plain_ms
-        row["bound_ms"] += bound_ms(nb, ops)
-        row["bytes"] += nb
-        row["ops"] += ops
+    # timing: each call of each path's forward; a kernel's row sums its calls
+    table = {n: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
+                     by_path={}) for n in KERNELS}
+    for path, (eng, counts, checked) in paths.items():
+        for name, cargs, kw, out, err in checked:
+            ms, call_ms, plain_ms, nb, tops, cops = time_call(name, cargs, kw, out, reps=10)
+            tb, to = bound_s(nb, tops, cops)
+            log(f"{path} time {name} {describe(cargs, kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms "
+                f"({'bytes' if tb > to else 'operations'}), {nb} bytes, {tops} tensor-core ops, "
+                f"{cops} CUDA-core ops")
+            row = table[name]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += 1e3 * max(tb, to)
+            row["t_bytes"] += tb
+            row["t_ops"] += to
+            by = row["by_path"].setdefault(path, dict(launches=counts[name], ms=0.0, bound_ms=0.0))
+            by["ms"] += ms
+            by["bound_ms"] += 1e3 * max(tb, to)
+    ms, call_ms, plain_ms, nb, tops, cops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
+    tb, to = bound_s(nb, tops, cops)
+    log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {tops} ops")
 
-    cls = next(c for c in calls if c[0] == "int8_gemm")
+    # library yardstick for K1: the ResNet-18 classifier's shape
+    cls = next(c for c in paths["resnet18"][2] if c[0] == "int8_gemm")
     M, K = cls[1][0].shape
     lib_ms, lib_m = int_mm_ms(M, K, cls[1][1].shape[1], device)
     log(f"library: torch._int_mm at M={lib_m} (main path M={M}), K={K}, "
         f"N={cls[1][1].shape[1]}: {lib_ms:.4f} ms")
 
-    # the whole forward: wall time (CUDA events), device-busy time
-    # (profiler), and where the device time goes
-    for b in TIMED_BATCHES:
-        xb = eng.condition_input(images[:b])
-        wall = time_ms(lambda: eng(xb), reps=5, rounds=5)
-        busy, ka = device_ms(lambda: eng(xb), reps=5)
-        log(f"forward: batch {b}: {wall:.3f} ms, {1e3 * b / wall:.1f} images/s, device busy "
-            f"{busy:.4f} ms, idle share {1 - busy / wall:.3f} ({card})")
-        ours = sum(e.self_device_time_total for e in ka if "f8::" in e.key) / 5e3
-        log(f"  forward batch {b}: port kernels {ours:.4f} ms of device time per forward")
-        for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"  forward batch {b}: {e.self_device_time_total / 5e3:.4f} ms, "
-                f"{e.count // 5} launches: {e.key[:90]}")
+    for path, (eng, _, _) in paths.items():
+        time_forward(path, eng, images, card)
 
     log(f"clocks after timing ({clocks}): {smi(clocks)}")
     kernels = []
@@ -494,10 +608,12 @@ def main(argv=None) -> int:
         row = table[name]
         kernels.append(dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=counts[name], max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=bound_by(row["bytes"], row["ops"]),
+            launches=sum(counts[name] for _, counts, _ in paths.values()),
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"],
+            bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
             library_ms=lib_ms if name == "int8_gemm" else None,
+            by_path=row["by_path"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,6 +12,11 @@
 // registers before the single store, so the int32 accumulator never goes to
 // device memory in the requant8 epilogue.  No software pipelining yet: each
 // 64-byte K step loads, synchronises, computes.
+//
+// Any K % 4 == 0: the last K step stages the bytes past K as zeros in
+// shared memory for both operands (the Pallas kernel padded K in device
+// memory instead, pallas_gemm.py:153-158).  x rows load 16 bytes at a time
+// when K % 16 == 0, else 4 (MobileNetV2's K = 24 expand).
 #include <cstdint>
 
 #include "launch.cuh"
@@ -19,7 +24,7 @@
 
 namespace f8 {
 
-template <bool kVec4>
+template <bool kVec4, int kVecA>
 __global__ void __launch_bounds__(kThreads)
     int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                      const int32_t* __restrict__ bias, void* __restrict__ out, int M, int N,
@@ -28,17 +33,7 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   Acc acc = {};
   for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A: 64 rows x 64 bytes, two 16-byte chunks per thread (K % 16 == 0)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int q = threadIdx.x + j * kThreads;
-      const int row = q >> 2, kc = (q & 3) * 16;
-      const int m = m0 + row, k = k0 + kc;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m < M && k < K)
-        v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + k);
-      *reinterpret_cast<uint4*>(s.a + row * kLDS + kc) = v;
-    }
+    load_a_rows<kVecA>(s, x, M, K, m0, k0);
     load_b_kn<kVec4>(s, w + static_cast<size_t>(k0) * N, N, min(kBK, K - k0), n0);
     __syncthreads();
     tile_mma(s, acc);
@@ -47,19 +42,29 @@ __global__ void __launch_bounds__(kThreads)
   store_tile(acc, m0, n0, M, N, bias, epilogue, net, out_signed != 0, relu != 0, out);
 }
 
+template <bool kVec4>
+void launch_gemm(dim3 grid, cudaStream_t stream, int vec_a, const int8_t* x, const int8_t* w,
+                 const int32_t* bias, void* out, int M, int N, int K, int epilogue, int net,
+                 int out_signed, int relu) {
+  const auto kernel = vec_a == 16 ? int8_gemm_kernel<kVec4, 16> : int8_gemm_kernel<kVec4, 4>;
+  kernel<<<grid, kThreads, 0, stream>>>(x, w, bias, out, M, N, K, epilogue, net, out_signed,
+                                        relu);
+}
+
 }  // namespace f8
 
-// x: (M, K) int8, K % 16 == 0, 16-byte aligned; w: (K, N) int8, 4-byte aligned;
-// bias: (N,) int32; out: (M, N) int32 (epilogue 0) or int8 (epilogue 1).
+// x: (M, K) int8, vec_a-byte aligned with K % vec_a == 0 (vec_a 16 or 4);
+// w: (K, N) int8, 4-byte aligned; bias: (N,) int32; out: (M, N) int32
+// (epilogue 0) or int8 (epilogue 1).
 extern "C" int f8_int8_gemm(const void* x, const void* w, const void* bias, void* out, int M,
-                            int N, int K, int epilogue, int net, int out_signed, int relu,
-                            void* stream) {
+                            int N, int K, int vec_a, int epilogue, int net, int out_signed,
+                            int relu, void* stream) {
   const dim3 grid((M + f8::kBM - 1) / f8::kBM, (N + f8::kBN - 1) / f8::kBN);
   // 32-bit weight loads where every row starts 4-byte aligned; a class count
   // N that is not a multiple of 4 (a 10-class bundle) takes byte loads
-  const auto kernel = N % 4 == 0 ? f8::int8_gemm_kernel<true> : f8::int8_gemm_kernel<false>;
-  kernel<<<grid, f8::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(bias), out, M, N, K, epilogue, net, out_signed, relu);
+  const auto launch = N % 4 == 0 ? f8::launch_gemm<true> : f8::launch_gemm<false>;
+  launch(grid, static_cast<cudaStream_t>(stream), vec_a, static_cast<const int8_t*>(x),
+         static_cast<const int8_t*>(w), static_cast<const int32_t*>(bias), out, M, N, K,
+         epilogue, net, out_signed, relu);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
-// Block tile of the port's s8 x s8 -> s32 products (K1 int8_gemm.cu and
-// K2 int8_conv.cu): a 64 x 64 output tile per block of 4 warps, each warp
-// 32 x 32, on mma.sync.m16n8k32 tensor-core instructions.
+// Block tile of the port's s8 x s8 -> s32 products (K1 int8_gemm.cu, K2
+// int8_conv.cu and the two 1x1 products of K5 ir_block.cu): a 64 x 64 output
+// tile per block of 4 warps, each warp 32 x 32, on mma.sync.m16n8k32
+// tensor-core instructions.
 //
 // Per step of the reduction the block stages a 64 x 64-byte A tile (rows =
 // GEMM rows or output pixels, k contiguous) and a 64 x 64-byte B tile
@@ -51,32 +52,68 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// acc += A_tile . B_tile^T over the kBK bytes staged in shared memory
-__device__ __forceinline__ void tile_mma(const SmemTile& s, Acc& acc) {
+// acc += A . B^T over kBK bytes of k: A is the block's 64 rows starting at
+// `a` (row stride lda bytes), B its 64 columns starting at `b`, stored
+// k-contiguous (row stride ldb bytes), both in shared memory.  A stride of
+// 16 mod 64 bytes (kLDS = 80, or a round-up of the reduction to 64 plus 16)
+// puts the 32 lanes of a fragment read on 32 distinct banks.
+__device__ __forceinline__ void tile_mma_ptr(const int8_t* a, int lda, const int8_t* b, int ldb,
+                                             Acc& acc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < kBK; kk += 32) {
-    uint32_t a[2][4], b[4][2];
+    uint32_t af[2][4], bf[4][2];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
-      const int8_t* p = s.a + (wm + mi * 16 + g) * kLDS + kk + t * 4;
-      a[mi][0] = lds32(p);
-      a[mi][1] = lds32(p + 8 * kLDS);
-      a[mi][2] = lds32(p + 16);
-      a[mi][3] = lds32(p + 8 * kLDS + 16);
+      const int8_t* p = a + (wm + mi * 16 + g) * lda + kk + t * 4;
+      af[mi][0] = lds32(p);
+      af[mi][1] = lds32(p + 8 * lda);
+      af[mi][2] = lds32(p + 16);
+      af[mi][3] = lds32(p + 8 * lda + 16);
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
-      const int8_t* p = s.b + (wn + ni * 8 + g) * kLDS + kk + t * 4;
-      b[ni][0] = lds32(p);
-      b[ni][1] = lds32(p + 16);
+      const int8_t* p = b + (wn + ni * 8 + g) * ldb + kk + t * 4;
+      bf[ni][0] = lds32(p);
+      bf[ni][1] = lds32(p + 16);
     }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+  }
+}
+
+// acc += A_tile . B_tile^T over the kBK bytes staged in shared memory
+__device__ __forceinline__ void tile_mma(const SmemTile& s, Acc& acc) {
+  tile_mma_ptr(s.a, kLDS, s.b, kLDS, acc);
+}
+
+// Stage A[m0 .. m0+64, k0 .. k0+64) of a row-major (M, K) int8 matrix as
+// s.a[row][k], V bytes per load (16 or 4; requires K % V == 0 and `x`
+// V-byte aligned).  Rows past M and bytes past K are staged as 0, so a K that
+// is not a multiple of kBK needs no padding in device memory: zero times
+// anything adds nothing to the sum.
+template <int V>
+__device__ __forceinline__ void load_a_rows(SmemTile& s, const int8_t* x, int M, int K, int m0,
+                                            int k0) {
+  constexpr int kPerRow = kBK / V;
+#pragma unroll
+  for (int j = 0; j < kBM * kPerRow / kThreads; ++j) {
+    const int q = threadIdx.x + j * kThreads;
+    const int row = q / kPerRow, kc = (q % kPerRow) * V;
+    const int m = m0 + row, k = k0 + kc;
+    const bool ok = m < M && k < K;
+    const int8_t* src = x + static_cast<size_t>(m) * K + k;
+    int8_t* dst = s.a + row * kLDS + kc;
+    static_assert(V == 16 || V == 4, "16- or 4-byte row loads");
+    if constexpr (V == 16)
+      *reinterpret_cast<uint4*>(dst) =
+          ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = ok ? *reinterpret_cast<const uint32_t*>(src) : 0u;
   }
 }
 
@@ -94,13 +131,13 @@ __device__ __forceinline__ uint32_t load_row4(const int8_t* row, int n, int N) {
 }
 
 // Stage B[k0 .. k0+kvalid, n0 .. n0+64) of a (K, N) row-major int8 matrix
-// whose row k0 starts at `w` (row stride N) as s.b[n][k].  Each thread
-// moves two 4 x 4 byte blocks: four row loads, a register transpose with
-// byte permutes, four 32-bit column stores.  Rows past kvalid and columns
-// past N are staged as 0.  kVec4 requires N % 4 == 0.
+// whose row k0 starts at `w` (row stride N) as sb[n][k], row stride kLDS.
+// Each thread moves two 4 x 4 byte blocks: four row loads, a register
+// transpose with byte permutes, four 32-bit column stores.  Rows past kvalid
+// and columns past N are staged as 0.  kVec4 requires N % 4 == 0.
 template <bool kVec4>
-__device__ __forceinline__ void load_b_kn(SmemTile& s, const int8_t* w, int N,
-                                          int kvalid, int n0) {
+__device__ __forceinline__ void load_b_kn(int8_t* sb, const int8_t* w, int N, int kvalid,
+                                          int n0) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int q = threadIdx.x + j * kThreads;
@@ -120,8 +157,30 @@ __device__ __forceinline__ void load_b_kn(SmemTile& s, const int8_t* w, int N,
         __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc)
-      *reinterpret_cast<uint32_t*>(s.b + (nq * 4 + cc) * kLDS + k) = c[cc];
+      *reinterpret_cast<uint32_t*>(sb + (nq * 4 + cc) * kLDS + k) = c[cc];
   }
+}
+
+template <bool kVec4>
+__device__ __forceinline__ void load_b_kn(SmemTile& s, const int8_t* w, int N, int kvalid,
+                                          int n0) {
+  load_b_kn<kVec4>(s.b, w, N, kvalid, n0);
+}
+
+// f(row, col, value) for each accumulator element this thread holds, with
+// row and col relative to the block's 64 x 64 tile.
+template <class F>
+__device__ __forceinline__ void for_each_acc(const Acc& acc, F&& f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f(wm + mi * 16 + g + (i >= 2 ? 8 : 0), wn + ni * 8 + t * 2 + (i & 1), acc[mi][ni][i]);
 }
 
 // Epilogue of a 64 x 64 tile into a row-major (M, N) output: bias add,

@@ -39,7 +39,10 @@ __device__ __forceinline__ int32_t bias_relu(int32_t acc, int32_t bias, bool rel
 //                                                 the low bits of the two's
 //                                                 complement, as jnp.mod)
 //   res = tie ? (res >> (net+1)) << 1 : res >> net   (arithmetic shifts)
-__device__ __forceinline__ int8_t requant8(int32_t v, int net, bool out_signed) {
+//
+// requant_value returns the clamped grid value itself (-127..127 or
+// 0..255); requant8 packs it.
+__device__ __forceinline__ int32_t requant_value(int32_t v, int net, bool out_signed) {
   int32_t r;
   if (net > 0) {
     const uint32_t half = 1u << (net - 1);
@@ -50,8 +53,12 @@ __device__ __forceinline__ int8_t requant8(int32_t v, int net, bool out_signed) 
   } else {
     r = static_cast<int32_t>(static_cast<uint32_t>(v) << (-net));
   }
-  if (out_signed) return static_cast<int8_t>(min(max(r, -127), 127));
-  return static_cast<int8_t>(min(max(r, 0), 255) - 128);
+  return out_signed ? min(max(r, -127), 127) : min(max(r, 0), 255);
+}
+
+__device__ __forceinline__ int8_t requant8(int32_t v, int net, bool out_signed) {
+  const int32_t r = requant_value(v, net, out_signed);
+  return static_cast<int8_t>(out_signed ? r : r - 128);
 }
 
 }  // namespace f8

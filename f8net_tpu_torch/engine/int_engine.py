@@ -1,43 +1,54 @@
-"""Integer-only inference engine, strict rung, ResNet with BasicBlocks --
-the port of `f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`,
-`_forward`'s ResNet branch `:1283-1361` and average pool/classifier
-`:1383-1415`) as the JAX engine runs it with `stem_kernel=True` and the
-Pallas route of `conv_int` (`:693-759`).
+"""Integer-only inference engine, strict rung -- the port of
+`f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`) for two families.
 
-Every conv and matmul is an int8 x int8 product accumulating in int32, and
-every requantization a shift by an amount fixed in the plan.  The products
-run in the port's kernels:
+ResNet with BasicBlocks (`_forward`'s ResNet branch `:1283-1361` and average
+pool/classifier `:1383-1415`, as the JAX engine runs it with
+`stem_kernel=True` and the Pallas route of `conv_int` `:693-759`):
   * the head (7x7/s2 conv + bias + ReLU + 3x3/s2 maxpool) in K3 (ops.stem);
   * every 3x3 conv and the 1x1/s2 shortcuts in K2 (ops.conv): intra-block
     convs end in the requant8 epilogue, packed for their unique consumer;
-    the last body conv and the shortcut end in int32 for the residual add;
-  * the classifier in K1 (ops.gemm), int32 epilogue, logits float32.
-The glue -- the input pack, the aligned wrapping residual add, ReLU and the
-shift-sum average pool -- is plain torch on the same device.
+    the last body conv and the shortcut end in int32 for the residual add.
+
+MobileNetV2 (`_forward`'s MobileNetV2 branch `:1367-1381`,
+`_block_mbv2_int` `:1112-1136`, `try_fused_ir` `:862-1031` in its strict
+form):
+  * the head (3x3/s2 over C = 3) in K2, requant8 packed for the first
+    block: its weights are padded once with zero input channels to 16, the
+    wire input's channels likewise (any value meets a zero weight, and zero
+    rows add nothing to the zero-point colsum);
+  * every block whose body is a 1x1/s1 expand, a kxk/s1 depthwise with pad
+    (k-1)/2 and a 1x1/s1 project in K5 (ops.ir_block), 12 at the published
+    block setting -- decided from the graph's structure alone;
+  * the other blocks layer by layer: depthwise convs (stride 1 and 2) in K4
+    (ops.dw), 1x1/s1 convs in K1 as GEMMs over N*H*W rows;
+  * the tail (1x1 to 1280, int32 + ReLU) in K1.
+
+Both: the classifier in K1 (ops.gemm), int32 epilogue, logits float32.  The
+glue -- the input pack, the pack of an int32 carry for the next conv, the
+aligned wrapping residual add, ReLU and the shift-sum average pool -- is
+plain torch on the same device.
 
 The strict contract is the reference's: block boundaries carry exact int32
 accumulators, and results are bit-equal to the JAX engine's
-`IntEngine(int_only=True)`.
+`IntEngine(int_only=True)`, whichever route that engine takes.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
+from ..nn.pool import avgpool_shift_for
 from ..nn.spec import LinearSpec
 from ..ops import conv as _conv
+from ..ops import dw as _dw
 from ..ops import gemm as _gemm
+from ..ops import ir_block as _ir
 from ..ops import stem as _stem
 from ..ops.fxp import INT32_MAX, fix_quant, shift_requant, wrap_i32
 from ..utils.device import resolve_device
-
-
-def avgpool_shift_for(kernel: int) -> int:
-    """shiftnum = round(log2(k*k)) of the reference's FXQAvgPool2d."""
-    return max(int(round(math.log2(float(kernel * kernel)))), 0)
 
 
 class IAct(NamedTuple):
@@ -65,6 +76,31 @@ def add_zero_point_bias(graph, plan, int_params):
     return out
 
 
+def is_pointwise(spec) -> bool:
+    """A 1x1/s1 conv without padding or groups: a GEMM over N*H*W rows."""
+    return (
+        spec.kernel == (1, 1) and spec.stride == (1, 1) and spec.padding == (0, 0)
+        and spec.groups == 1
+    )
+
+
+def fuses_ir(graph, meta) -> bool:
+    """Whether an inverted-residual block runs whole in K5: a body of three,
+    1x1/s1 expand, square kxk depthwise at stride 1 with pad (k-1)/2, 1x1/s1
+    project (`try_fused_ir`'s structural test, `int_engine.py:872-890`, with
+    the pad guard that test lacked).  The TPU's VMEM limits are not ported:
+    every such block fuses, the 960-channel 7x7 ones included."""
+    if len(meta.body) != 3:
+        return False
+    se, sd, sp = (graph[n] for n in meta.body)
+    k = sd.kernel[0]
+    return (
+        is_pointwise(se) and is_pointwise(sp) and sd.is_depthwise
+        and sd.kernel == (k, k) and k % 2 == 1 and sd.stride == (1, 1)
+        and sd.padding == ((k - 1) // 2,) * 2
+    )
+
+
 class IntEngine:
     """Strict integer inference engine bound to a plan and its int params.
 
@@ -73,9 +109,14 @@ class IntEngine:
 
     def __init__(self, model, plan, int_params, cfg=None, device="cuda"):
         self.device = resolve_device(device)
-        if any(len(m.body) != 2 for m in model.blocks):
+        if model.name.startswith("resnet"):
+            if any(len(m.body) != 2 for m in model.blocks):
+                raise NotImplementedError(
+                    f"{model.name}: Bottleneck ResNets are not ported yet (ROADMAP item 6)"
+                )
+        elif model.name != "mobilenet_v2":
             raise NotImplementedError(
-                f"{model.name}: Bottleneck ResNets are not ported yet (ROADMAP item 6)"
+                f"{model.name}: no engine path is ported yet (ROADMAP item 7)"
             )
         self.model = model
         self.graph = model.graph
@@ -87,6 +128,14 @@ class IntEngine:
         }
         self.params = add_zero_point_bias(self.graph, plan, params)
         self._gemm, self._convk, self._stemk = _gemm.int8_gemm, _conv.conv_int8, _stem.stem_pool
+        self._dwk, self._irk = _dw.dw_int8, _ir.fused_ir_block
+        if model.name == "mobilenet_v2":
+            w = self.params["head"]["w"]
+            cpad = -w.shape[2] % 16
+            self._head_w = F.pad(w, (0, 0, 0, cpad)).contiguous()
+            self._fused = {
+                m.body[0]: self._ir_operands(m) for m in model.blocks if fuses_ir(self.graph, m)
+            }
 
     # -- input -------------------------------------------------------------
 
@@ -144,43 +193,140 @@ class IntEngine:
             return p["b"], 0
         return p["b_zp"], -128
 
-    def head(self, x: torch.Tensor) -> IAct:
-        """Wire input -> pooled int32 stem activation through K3
-        (`int_engine.py:1290-1337`)."""
+    def _wire_operand(self, x: torch.Tensor) -> torch.Tensor:
+        """The wire input requantized onto the head's 8-bit grid and packed
+        (`int_engine.py:1312-1317`)."""
         pl = self.plan["head"]
         v = shift_requant(x.to(torch.int32), 8, pl.input_fl, pl.input_fl, pl.input_symmetric)
         zp = 0 if pl.input_symmetric else 128
-        v8 = (v - zp).to(torch.int8)
-        b, pad = self._bias_pad("head")
-        pooled = self._stemk(v8, self.params["head"]["w"], b, pad_value=pad)
-        return IAct(pooled, pl.out_fl)
+        return (v - zp).to(torch.int8)
 
-    def conv_int(self, name: str, act: IAct, pack_output_for: Optional[str] = None) -> IAct:
-        """int8 conv through K2; requant8 epilogue packed for a unique
-        consumer conv, int32 otherwise (`int_engine.py:693-759`)."""
+    def head(self, x: torch.Tensor) -> IAct:
+        """Wire input -> pooled int32 stem activation through K3
+        (`int_engine.py:1290-1337`)."""
+        b, pad = self._bias_pad("head")
+        pooled = self._stemk(self._wire_operand(x), self.params["head"]["w"], b, pad_value=pad)
+        return IAct(pooled, self.plan["head"].out_fl)
+
+    def head_conv(self, x: torch.Tensor, pack_output_for: Optional[str]) -> IAct:
+        """Wire input -> MobileNetV2 head through K2 with its input channels
+        padded to the padded weights' (`int_engine.py:1373-1377`)."""
+        v8 = self._wire_operand(x)
+        v8 = F.pad(v8, (0, self._head_w.shape[2] - v8.shape[3]))
+        return self._product("head", v8, self._head_w, pack_output_for)
+
+    def conv_int(
+        self, name: str, act: IAct, pack_output_for: Optional[str] = None, relu: bool = False
+    ) -> IAct:
+        """int8 conv; requant8 epilogue packed for a unique consumer conv,
+        int32 otherwise (`int_engine.py:549-803`)."""
+        act = self.pack_for(act, name)
+        return self._product(name, act.x, self.params[name]["w"], pack_output_for, relu)
+
+    def _product(self, name, x8, w, pack_output_for, relu=False) -> IAct:
+        """Layer `name` on its packed operand `x8`, routed by the layer's
+        structure: depthwise -> K4, 1x1/s1 -> K1 over N*H*W rows, any other
+        conv -> K2."""
         pl = self.plan[name]
         spec = self.graph[name]
-        act = self.pack_for(act, name)
         b, pad = self._bias_pad(name)
-        kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad)
-        w = self.params[name]["w"]
         if pack_output_for is None:
-            return IAct(self._convk(act.x, w, b, epilogue="int32", **kw), pl.out_fl)
-        cons = self.plan[pack_output_for]
-        y8 = self._convk(
-            act.x, w, b, epilogue="requant8", net=pl.out_fl - cons.input_fl,
-            out_signed=cons.input_symmetric, **kw,
-        )
-        return IAct(y8, cons.input_fl, packed_for=pack_output_for)
+            epi = dict(epilogue="int32")
+        else:
+            cons = self.plan[pack_output_for]
+            epi = dict(
+                epilogue="requant8", net=pl.out_fl - cons.input_fl,
+                out_signed=cons.input_symmetric,
+            )
+        if is_pointwise(spec):
+            n, h, wd, c = x8.shape
+            y = self._gemm(x8.reshape(-1, c), w.reshape(c, -1), b, relu=relu, **epi)
+            y = y.reshape(n, h, wd, -1)
+        else:
+            kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad, relu=relu)
+            k = self._dwk if spec.is_depthwise else self._convk
+            y = k(x8, w, b, **kw, **epi)
+        if pack_output_for is None:
+            return IAct(y, pl.out_fl)
+        return IAct(y, self.plan[pack_output_for].input_fl, packed_for=pack_output_for)
 
     def block(self, meta, a: IAct) -> IAct:
-        """BasicBlock (`_block_resnet_int`, `int_engine.py:1054-1073`)."""
+        """ResNet BasicBlock (`_block_resnet_int`, `int_engine.py:1054-1073`)."""
         v = a
         for prev, nxt in zip(meta.body[:-1], meta.body[1:]):
             v = self.conv_int(prev, v, pack_output_for=nxt)
         res = self.conv_int(meta.body[-1], v)
         s = a if meta.shortcut is None else self.conv_int(meta.shortcut, a)
         return self.relu_i32(self.add_int(res, s))
+
+    def _ir_operands(self, meta):
+        """(w1, b1, wd, bd, w2, b2) of a fused block in K5's layouts: the
+        expand and project weights as (in, out) matrices with the
+        zero-point-compensated biases, the depthwise weights (k, k, Ce) with
+        the plain bias, since K5's depthwise runs on unpacked values
+        (`int_engine.py:932-954`)."""
+        en, dn, pn = meta.body
+        sd = self.graph[dn]
+        ce, k = sd.out_ch, sd.kernel[0]
+        w1 = self.params[en]["w"].reshape(-1, ce)
+        w2 = self.params[pn]["w"].reshape(ce, -1)
+        wd = self.params[dn]["w"].reshape(k, k, ce)
+        return w1, self._bias_pad(en)[0], wd, self.params[dn]["b"], w2, self._bias_pad(pn)[0]
+
+    def fused_ir(self, meta, a: IAct, next_consumer: Optional[str]) -> IAct:
+        """A whole inverted-residual block through K5 (`try_fused_ir`,
+        `int_engine.py:862-1031`, strict form): a residual block adds the
+        int32 carry `a` on the common grid and ends in int32; any other ends
+        in requant8 packed for a unique consumer, else in int32."""
+        en, dn, pn = meta.body
+        ple, pld, plp = self.plan[en], self.plan[dn], self.plan[pn]
+        ap = self.pack_for(a, en)
+        kw = dict(
+            net1=ple.out_fl - pld.input_fl, dw_in_signed=pld.input_symmetric,
+            net2=pld.out_fl - plp.input_fl, proj_in_signed=plp.input_symmetric,
+        )
+        ops = self._fused[en]
+        if meta.residual:
+            rf, vf = plp.out_fl, a.fl
+            y = self._irk(
+                ap.x, *ops, a.x, out="int32", shift_res=max(vf - rf, 0),
+                shift_carry=max(rf - vf, 0), **kw,
+            )
+            return IAct(y, max(rf, vf))
+        if next_consumer is not None:
+            cons = self.plan[next_consumer]
+            y8 = self._irk(
+                ap.x, *ops, out="requant8", net_out=plp.out_fl - cons.input_fl,
+                out_signed=cons.input_symmetric, **kw,
+            )
+            return IAct(y8, cons.input_fl, packed_for=next_consumer)
+        return IAct(self._irk(ap.x, *ops, out="int32", **kw), plp.out_fl)
+
+    def block_mbv2(self, meta, a: IAct, next_consumer: Optional[str]) -> IAct:
+        """Inverted residual (`_block_mbv2_int`, `int_engine.py:1112-1136`):
+        whole in K5 where the structure allows, else layer by layer with
+        fused requant8 edges; residual blocks keep int32 ends for the
+        aligned add, and there is no post-add ReLU."""
+        if meta.body[0] in self._fused:
+            return self.fused_ir(meta, a, next_consumer)
+        v = a
+        for prev, nxt in zip(meta.body[:-1], meta.body[1:]):
+            v = self.conv_int(prev, v, pack_output_for=nxt)
+        if meta.residual:
+            return self.add_int(self.conv_int(meta.body[-1], v), a)
+        return self.conv_int(meta.body[-1], v, pack_output_for=next_consumer)
+
+    def features_mbv2(self, x: torch.Tensor) -> IAct:
+        """Head, blocks and tail (`int_engine.py:1367-1381`): a block's
+        output is packed for the next block's first conv unless that block
+        is residual (then it is the int32 carry); the last block's is packed
+        for the tail, whose ReLU is fused into K1."""
+        blocks = self.model.blocks
+        consumers = [None if nxt.residual else nxt.body[0] for nxt in blocks[1:]] + ["tail"]
+        a = self.head_conv(x, None if blocks[0].residual else blocks[0].body[0])
+        for meta, nxt in zip(blocks, consumers):
+            a = self.block_mbv2(meta, a, nxt)
+        return self.conv_int("tail", a, relu=True)
 
     def avgpool(self, a: IAct) -> IAct:
         """Global average pool (`int_engine.py:1385-1414`): the shift-sum
@@ -207,7 +353,10 @@ class IntEngine:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Conditioned input (condition_input's output) -> float32 logits."""
         x = x.to(self.device)
-        a = self.head(x)
-        for meta in self.model.blocks:
-            a = self.block(meta, a)
+        if self.model.name == "mobilenet_v2":
+            a = self.features_mbv2(x)
+        else:
+            a = self.head(x)
+            for meta in self.model.blocks:
+                a = self.block(meta, a)
         return self.classifier(self.avgpool(a))

@@ -56,6 +56,15 @@ def params_from_numpy(
     return plan, params
 
 
+def _block_entry(meta) -> dict:
+    """A block's topology record, as the JAX writer makes it
+    (`f8net_tpu/export/bundle.py:49-55`): ResNet blocks carry `shortcut`,
+    MobileNetV2 blocks `residual`; each family's missing field is derived."""
+    shortcut = getattr(meta, "shortcut", None)
+    residual = getattr(meta, "residual", getattr(meta, "shortcut", 1) is None)
+    return {"body": list(meta.body), "shortcut": shortcut, "residual": bool(residual)}
+
+
 def save_deploy_bundle(path: str, model, plan: QuantPlan, int_params) -> str:
     """Write the npz + JSON pair; returns the npz path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -80,10 +89,7 @@ def save_deploy_bundle(path: str, model, plan: QuantPlan, int_params) -> str:
         "model": model.name,
         "num_classes": model.num_classes,
         "block_setting": model.block_setting,
-        "blocks": [
-            {"body": list(m.body), "shortcut": m.shortcut, "residual": m.shortcut is None}
-            for m in model.blocks
-        ],
+        "blocks": [_block_entry(m) for m in model.blocks],
         "layers": layers,
         "cfg": {
             "normalize": model.cfg.normalize,
@@ -120,10 +126,12 @@ def load_deploy_bundle(path: str, device="cuda") -> Tuple[dict, QuantPlan, dict]
 
 def model_from_topology(topo: dict, image_size: int = 224):
     """Rebuild a bundle's model graph (the bundle does not record the image
-    size, which sets the average pool's extent)."""
+    size, which sets the average pool's extent).  Every block's body,
+    shortcut and residual flag must match the graph's."""
     cfg = QuantConfig(**topo["cfg"])
     model = get_model(topo["model"], cfg, num_classes=topo["num_classes"], image_size=image_size)
-    blocks = [{"body": list(m.body), "shortcut": m.shortcut} for m in model.blocks]
-    if blocks != [{"body": b["body"], "shortcut": b["shortcut"]} for b in topo["blocks"]]:
+    keys = ("body", "shortcut", "residual")
+    blocks = [{k: b[k] for k in keys} for b in topo["blocks"]]
+    if blocks != [_block_entry(m) for m in model.blocks]:
         raise ValueError(f"bundle topology does not match the {topo['model']} graph")
     return model

@@ -23,6 +23,6 @@ class Model:
     block_setting: Any
     conv_order: List[str]  # layer names in the reference's named_modules order
     num_classes: int = 1000
-    blocks: Any = None  # per-block metadata (body conv names, shortcut)
+    blocks: Any = None  # per-block metadata (body conv names; shortcut or residual flag)
     pool_fuse_layer: Optional[str] = None  # conv that absorbs 2^s/k^2 at int conversion
     pool_kernel: int = 7  # global-avgpool extent (image_size // 32)

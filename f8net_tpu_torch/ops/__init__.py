@@ -1,9 +1,12 @@
 from .conv import conv_int8, conv_int8_plain
+from .dw import dw_int8, dw_int8_plain
 from .fxp import fix_quant, requant_net, shift_requant, wrap_i32
 from .gemm import int8_gemm, int8_gemm_plain
+from .ir_block import fused_ir_block, fused_ir_block_plain
 from .stem import stem_pool, stem_pool_plain
 
 __all__ = [
-    "conv_int8", "conv_int8_plain", "fix_quant", "int8_gemm", "int8_gemm_plain",
-    "requant_net", "shift_requant", "stem_pool", "stem_pool_plain", "wrap_i32",
+    "conv_int8", "conv_int8_plain", "dw_int8", "dw_int8_plain", "fix_quant", "int8_gemm",
+    "int8_gemm_plain", "fused_ir_block", "fused_ir_block_plain", "requant_net", "shift_requant",
+    "stem_pool", "stem_pool_plain", "wrap_i32",
 ]

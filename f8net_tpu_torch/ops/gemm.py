@@ -5,7 +5,7 @@ H100 and what its design does about that).
 
     y[M, N] = epilogue(x[M, K] @ w[K, N] + bias[N])
 
-x and w are int8.  Unsigned activations arrive packed as s8 = u8 - 128, with
+x and w are int8, K % 4 == 0.  Unsigned activations arrive packed as s8 = u8 - 128, with
 the compensation 128 * colsum(w) already folded into the int32 bias.
 Epilogues:
   'int32'    -> the int32 accumulator (+ bias, + optional ReLU)
@@ -58,7 +58,13 @@ def int8_gemm_plain(
     return epilogue_plain(acc, bias, epilogue, net, out_signed, relu)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def row_load_width(K: int, ptr: int) -> int:
+    """Bytes per load of an x row in the kernel: 16 where K and the pointer
+    allow it, else 4."""
+    return 16 if K % 16 == 0 and ptr % 16 == 0 else 4
 
 
 def int8_gemm(
@@ -80,9 +86,9 @@ def int8_gemm(
     M, K = x.shape
     N = w.shape[1]
     req(bias.shape == (N,), "int8_gemm: bias shape")
-    req(K % 16 == 0, f"int8_gemm: needs K % 16 == 0, got {K}")
+    req(K > 0 and K % 4 == 0, f"int8_gemm: needs K % 4 == 0, got {K}")
     req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "int8_gemm: contiguity")
-    req(x.data_ptr() % 16 == 0 and w.data_ptr() % 4 == 0, "int8_gemm: alignment")
+    req(x.data_ptr() % 4 == 0 and w.data_ptr() % 4 == 0, "int8_gemm: alignment")
     req(epilogue in EPILOGUES, f"int8_gemm: unknown epilogue {epilogue!r}")
     req(-31 < net < 31, f"int8_gemm: shift {net} out of range")
     out = torch.empty(
@@ -92,7 +98,8 @@ def int8_gemm(
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
-            EPILOGUES[epilogue], net, int(out_signed), int(relu), _build.stream_of(x),
+            row_load_width(K, x.data_ptr()), EPILOGUES[epilogue], net, int(out_signed),
+            int(relu), _build.stream_of(x),
         )
         int8_gemm.launches += 1
     _build.check(lib, rc, "int8_gemm")

@@ -8,17 +8,22 @@ suite's conftest (which configures JAX):
 
 Shapes cover the ragged edges the main path does not: M, N and C that are
 not multiples of the 64-wide tiles, a GEMM N (class count) not a multiple of
-4, odd spatial sizes at stride 2, 5x5 kernels, negative shifts, ReLU, and
-biases that make the int32 epilogue wrap.  Every comparison is bitwise.
+4, GEMM K not a multiple of 16 (MobileNetV2's K = 24) or of 4, odd spatial
+sizes at stride 2, 5x5 kernels, depthwise channel counts that split unevenly
+across blocks, K5 blocks at 7x7 x 960 channels and at Cin = Cout = 24,
+negative shifts, ReLU, and biases that make the int32 epilogue and the K5
+carry add wrap.  Every comparison is bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from f8net_tpu_torch.ops import conv_int8, int8_gemm, stem_pool
+from f8net_tpu_torch.ops import conv_int8, dw_int8, fused_ir_block, int8_gemm, stem_pool
 from f8net_tpu_torch.ops.conv import conv_int8_plain
+from f8net_tpu_torch.ops.dw import dw_int8_plain
 from f8net_tpu_torch.ops.gemm import int8_gemm_plain
+from f8net_tpu_torch.ops.ir_block import fused_ir_block_plain
 from f8net_tpu_torch.ops.stem import stem_pool_plain
 
 pytestmark = pytest.mark.cuda
@@ -55,7 +60,9 @@ GEMM_EPILOGUES = [
 
 
 @pytest.mark.parametrize(
-    "M,K,N", [(8, 512, 1000), (1, 16, 4), (130, 48, 72), (65, 64, 68), (5, 32, 10)]
+    "M,K,N",
+    [(8, 512, 1000), (1, 16, 4), (130, 48, 72), (65, 64, 68), (5, 32, 10),
+     (25088, 24, 144), (130, 24, 72), (33, 16, 40), (17, 28, 12)],
 )
 @pytest.mark.parametrize("wrap", [False, True])
 def test_int8_gemm_kernel_vs_plain(dev, M, K, N, wrap):
@@ -65,6 +72,19 @@ def test_int8_gemm_kernel_vs_plain(dev, M, K, N, wrap):
         got = int8_gemm(x.to(dev), w.to(dev), b.to(dev), **kw)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
+
+
+def test_int8_gemm_unaligned_rows(dev):
+    """x rows that start off the 16-byte grid take the 4-byte loads."""
+    rng = np.random.RandomState(4)
+    M, K, N = 65, 64, 68
+    x, w, b = _int8(rng, (M, K)), _int8(rng, (K, N), -127), _bias(rng, N, False)
+    buf = torch.empty(M * K + 4, dtype=torch.int8, device=dev)
+    xd = buf[4:].view(M, K)
+    xd.copy_(x.to(dev))
+    got = int8_gemm(xd, w.to(dev), b.to(dev), epilogue="requant8", net=9)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, epilogue="requant8", net=9))
 
 
 # (n, h, w, c, o, k, stride, padding, pad_value)
@@ -102,6 +122,75 @@ def test_stem_pool_kernel_vs_plain(dev, n, h, w, pad_value):
     assert torch.equal(got.cpu(), stem_pool_plain(x, wt, b, pad_value=pad_value))
 
 
+# (n, h, w, c, k, stride, padding, pad_value)
+DW_SHAPES = [
+    (2, 112, 112, 32, 3, 1, 1, -128),
+    (1, 9, 11, 48, 3, 2, 1, 0),
+    (2, 7, 7, 960, 3, 1, 1, -128),
+    (1, 15, 15, 144, 3, 2, 1, -128),
+    (3, 8, 8, 16, 5, 2, 2, 0),
+    (1, 13, 13, 1024, 3, 1, 1, 0),
+    (1, 6, 5, 80, 1, 1, 0, 0),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,stride,padding,pad_value", DW_SHAPES)
+@pytest.mark.parametrize("wrap", [False, True])
+def test_dw_int8_kernel_vs_plain(dev, n, h, w, c, k, stride, padding, pad_value, wrap):
+    rng = np.random.RandomState(h * w + c + k + stride + wrap)
+    x, wt, b = _int8(rng, (n, h, w, c)), _int8(rng, (k, k, 1, c), -127), _bias(rng, c, wrap)
+    for kw in GEMM_EPILOGUES:
+        kw = dict(kw, stride=stride, padding=padding, pad_value=pad_value)
+        got = dw_int8(x.to(dev), wt.to(dev), b.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), dw_int8_plain(x, wt, b, **kw)), kw
+
+
+# (n, h, w, cin, ce, cout, k, carry)
+IR_SHAPES = [
+    (2, 56, 56, 24, 144, 24, 3, True),
+    (8, 7, 7, 160, 960, 160, 3, True),
+    (8, 7, 7, 160, 960, 320, 3, False),
+    (1, 13, 11, 32, 192, 32, 3, True),
+    (3, 5, 9, 24, 48, 24, 3, False),
+    (1, 9, 9, 64, 384, 96, 5, False),
+    (2, 14, 14, 96, 576, 96, 3, True),
+]
+# junction formats: (dw_in_signed, proj_in_signed, out, net_out, out_signed)
+IR_FORMATS = [
+    (False, False, "int32", 0, False),
+    (True, False, "requant8", 9, False),
+    (False, True, "requant8", 7, True),
+]
+
+
+@pytest.mark.parametrize("n,h,w,cin,ce,cout,k,carry", IR_SHAPES)
+@pytest.mark.parametrize("wrap", [False, True])
+def test_fused_ir_block_kernel_vs_plain(dev, n, h, w, cin, ce, cout, k, carry, wrap):
+    rng = np.random.RandomState(h * w + cin + ce + cout + k + wrap)
+    x = _int8(rng, (n, h, w, cin))
+    w1, wd = _int8(rng, (cin, ce), -40, 41), _int8(rng, (k, k, ce), -127)
+    w2 = _int8(rng, (ce, cout), -40, 41)
+    b1, bd = _bias(rng, ce, False), _bias(rng, ce, False)
+    b2 = _bias(rng, cout, wrap)
+    c = None
+    if carry:
+        c = torch.from_numpy(rng.randint(-(1 << 20), 1 << 20, (n, h, w, cout)).astype(np.int32))
+        if wrap:  # carry << shift_carry leaves the int32 range for some outputs
+            c[..., ::3] = IMAX - 5
+    args = (x, w1, b1, wd, bd, w2, b2, c)
+    for dw_s, proj_s, out, net_out, out_s in IR_FORMATS:
+        kw = dict(
+            net1=8, dw_in_signed=dw_s, net2=10 + k, proj_in_signed=proj_s, out=out,
+            net_out=net_out, out_signed=out_s,
+            shift_res=2 if carry else 0, shift_carry=1 if carry else 0,
+        )
+        got = fused_ir_block(*(None if a is None else a.to(dev) for a in args), **kw)
+        torch.cuda.synchronize()
+        want = fused_ir_block_plain(*args, **kw)
+        assert torch.equal(got.cpu(), want), kw
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: a shape the
     kernel does not take is refused, never handed to the plain version."""
@@ -121,6 +210,29 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         )
     with pytest.raises(ValueError, match="7, 7, 3, 64"):
         stem_pool(x, w, b)
+    with pytest.raises(ValueError, match="K % 4"):
+        int8_gemm(
+            torch.zeros((4, 6), dtype=torch.int8, device=dev),
+            torch.zeros((6, 4), dtype=torch.int8, device=dev),
+            torch.zeros(4, dtype=torch.int32, device=dev),
+        )
+    x24 = torch.zeros((1, 8, 8, 24), dtype=torch.int8, device=dev)
+    b24 = torch.zeros(24, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="C % 16"):
+        dw_int8(x24, torch.zeros((3, 3, 1, 24), dtype=torch.int8, device=dev), b24, padding=1)
+    w16 = torch.zeros((2, 2, 1, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="square odd"):
+        dw_int8(x16, w16, torch.zeros(16, dtype=torch.int32, device=dev))
+    w1 = torch.zeros((6, 48), dtype=torch.int8, device=dev)
+    wd = torch.zeros((3, 3, 48), dtype=torch.int8, device=dev)
+    w2 = torch.zeros((48, 24), dtype=torch.int8, device=dev)
+    b48 = torch.zeros(48, dtype=torch.int32, device=dev)
+    x6 = torch.zeros((1, 8, 8, 6), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="% 4"):
+        fused_ir_block(x6, w1, b48, wd, b48, w2, b24)
+    with pytest.raises(ValueError, match="mixed devices"):
+        w24 = torch.zeros((24, 48), dtype=torch.int8, device=dev)
+        fused_ir_block(x24, w24, b48, wd.cpu(), b48, w2, b24)
 
 
 def test_launch_counters_count_kernel_launches(dev):
@@ -133,15 +245,19 @@ def test_launch_counters_count_kernel_launches(dev):
     assert int8_gemm.launches == before + 1
 
 
-def test_engine_kernels_bitwise_equal_plain(dev):
-    """ResNet-18 at 64 px through the kernels and through the plain
-    versions, on the card: 19 K2, 1 K3 and 1 K1 launches, equal logits."""
+@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2"])
+def test_engine_kernels_bitwise_equal_plain(dev, path):
+    """Each main path at 64 px through the kernels and through the plain
+    versions, on the card: launches per forward as chip_smoke.py checks them
+    at 224 px, equal logits."""
     import chip_smoke
     from f8net_tpu_torch.engine import IntEngine
 
     images = torch.from_numpy(np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32))
-    model, plan, params, _ = chip_smoke.load_synthetic_model(1, 64, 10, dev, images.to(dev))
+    model, plan, params, _ = chip_smoke.load_synthetic_model(
+        1, 64, 10, dev, images.to(dev), model_name=path
+    )
     eng = IntEngine(model, plan, params, device=dev)
     logits, ref, counts, _, _ = chip_smoke.engine_phase(eng, eng.condition_input(images))
     chip_smoke.check_logits(logits, ref, 2, 10)
-    assert counts == chip_smoke.LAUNCHES_PER_FORWARD
+    assert counts == chip_smoke.expected_launches(path)

@@ -40,6 +40,26 @@ def test_resnet_graph_equals_reference(depth, normalize, pool_fusing):
     assert (got.pool_kernel, got.pool_fuse_layer) == (ref.pool_kernel, ref.pool_fuse_layer)
 
 
+@pytest.mark.parametrize("normalize,pool_fusing", [(False, True), (True, False)])
+def test_mobilenet_v2_graph_equals_reference(normalize, pool_fusing):
+    kw = dict(quant_avgpool=True, pool_fusing=pool_fusing, normalize=normalize)
+    ref = jax_get_model("mobilenet_v2", JaxQuantConfig(**kw), num_classes=10, image_size=224)
+    got = get_model("mobilenet_v2", QuantConfig(**kw), num_classes=10, image_size=224)
+    assert _specs(got.graph) == _specs(ref.graph)
+    assert got.graph.names() == ref.graph.names()
+    assert [tuple(m) for m in got.blocks] == [tuple(m) for m in ref.blocks]
+    assert got.conv_order == ref.conv_order
+    assert (got.name, got.block_setting, got.num_classes) == (
+        ref.name, ref.block_setting, ref.num_classes
+    )
+    assert (got.pool_kernel, got.pool_fuse_layer) == (ref.pool_kernel, ref.pool_fuse_layer)
+
+
+def test_mobilenet_v1_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        get_model("mobilenet_v1", QuantConfig(), num_classes=4, image_size=32)
+
+
 def test_port_and_chip_smoke_import_no_jax():
     """With `jax` made unimportable, the whole port and chip_smoke.py still
     import: neither needs JAX or anything of f8net_tpu."""
