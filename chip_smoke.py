@@ -16,13 +16,16 @@ from the seed:
   engine   per path, batch 8 through the kernels and through their plain
            PyTorch versions: logits bitwise equal, launches per forward as
            LAUNCHES_PER_FORWARD (ResNet-18: 19 K2 + 1 K3 + 1 K1; MobileNetV2:
-           1 K2 + 5 K4 + 11 K1 + 12 K5), non-degenerate logits
+           1 K2 + 5 K4 + 11 K1 + 12 K5), non-degenerate logits, and every
+           8-bit operand (K5's internal ones included) clamped less than
+           MAX_CLAMPED and zero less than MAX_ZERO of the time; logged: how
+           far logits and block outputs are from the float network's
   kernels  every kernel call of those forwards (plus K1's requant8 epilogue at
            a 1x1-conv shape) against its plain version on the same inputs
   timing   device time (torch.profiler) of each kernel call, of its plain
-           version and, for K1, of torch._int_mm; per path, whole-forward
-           images/s, device-busy share and device-time breakdown at batch 8
-           and 64
+           version and, for K1, of torch._int_mm at the same shape; per
+           path, whole-forward images/s, device-busy share and device-time
+           breakdown at batch 8 and 64
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -67,8 +70,9 @@ SIGNED_STD_COEFF = 40.0
 UNSIGNED_STD_COEFF = 70.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak, published
-CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, published:
-# the CUDA cores' fastest rate, so a least time for their int32 multiply-adds
+# every 8-bit operand a forward makes must clamp less and be zero less than
+# this often, or the synthetic calibration leaves the requant paths idle
+MAX_CLAMPED, MAX_ZERO = 0.05, 0.9
 
 CFG = QuantConfig(
     format_from_metric=True, metric="std", quant_bias=True, quant_avgpool=True,
@@ -131,13 +135,20 @@ def _nchw_conv(x, w_hwio, b, spec: ConvBNSpec):
     )
 
 
+def head_input(model, images):
+    """The head's input value, NCHW: the wire's round(255 x) at fraclen 8,
+    or the normalized image itself."""
+    x = images if model.cfg.normalize else torch.round(255.0 * images) / 256.0
+    return x.permute(0, 3, 1, 2)
+
+
 def float_forward(model, w_real, b_real, x):
     """The real-valued network the synthetic integer model approximates,
     in float32 on the input's device; `x` is the head's input value, NCHW.
     ReLU follows the head, every body conv but the last, the ResNet residual
     add and the MobileNetV2 tail; MobileNetV2's project and add have none.
-    Returns ({layer: std of its input}, logits)."""
-    g, sig = model.graph, {}
+    Returns ({layer: std of its input}, [each block's output], logits)."""
+    g, sig, outs = model.graph, {}, []
 
     def conv(name, v):
         sig[name] = float(v.std())
@@ -155,6 +166,7 @@ def float_forward(model, w_real, b_real, x):
         for meta in model.blocks:
             v = body(meta, a)
             a = v + a if meta.residual else v
+            outs.append(a)
         a = F.relu(conv("tail", a))
     else:
         a = F.max_pool2d(a, 3, 2, 1)
@@ -162,9 +174,10 @@ def float_forward(model, w_real, b_real, x):
             v = body(meta, a)
             s = a if meta.shortcut is None else conv(meta.shortcut, a)
             a = F.relu(v + s)
+            outs.append(a)
     pooled = a.sum((2, 3)) / 2.0 ** avgpool_shift_for(model.pool_kernel)
     sig["classifier"] = float(pooled.std())
-    return sig, pooled @ w_real["classifier"] + b_real["classifier"]
+    return sig, outs, pooled @ w_real["classifier"] + b_real["classifier"]
 
 
 def synthetic_bundle(model, seed: int, images):
@@ -189,12 +202,9 @@ def synthetic_bundle(model, seed: int, images):
         b_real[name] = (0.05 * rng.standard_normal(shape[-1])).astype(np.float32)
         w_real[name] = torch.from_numpy(w_int[name].astype(np.float32) / 2**WEIGHT_FL).to(dev)
     normalize = model.cfg.normalize
-    # the head's input value: the wire's round(255 x) at fraclen 8, or the
-    # normalized image itself
-    x = images if normalize else torch.round(255.0 * images) / 256.0
-    sig, logits = float_forward(
+    sig, _, logits = float_forward(
         model, w_real, {k: torch.from_numpy(v).to(dev) for k, v in b_real.items()},
-        x.permute(0, 3, 1, 2),
+        head_input(model, images),
     )
     records, arrays = [], {}
     for name in model.graph.names():
@@ -246,10 +256,21 @@ class Recorder:
         return call
 
 
+def clamp_zero_shares(v, signed: bool, packed: bool = True):
+    """(share clamped, share zero) of 8-bit values on a signed grid
+    (-127..127) or an unsigned one, stored packed (u - 128) or not."""
+    if signed:
+        clamped, zero = (v.abs() == 127), (v == 0)
+    else:
+        lo = -128 if packed else 0
+        clamped, zero = (v == lo + 255), (v == lo)
+    return float(clamped.float().mean()), float(zero.float().mean())
+
+
 class RequantStats:
     """Wraps an engine's pack_for and conv_int to keep the share of clamped
-    and of zero values in every 8-bit operand its forward produces: each
-    pack of an int32 activation and each requant8 conv output."""
+    and of zero values in every 8-bit operand its forward produces outside
+    K5: each pack of an int32 activation and each requant8 conv output."""
 
     def __init__(self, engine: IntEngine):
         self.rows = []
@@ -270,14 +291,28 @@ class RequantStats:
         engine.pack_for, engine.conv_int = pack, conv
 
     def _add(self, plan, act):
-        v8 = act.x
-        if plan[act.packed_for].input_symmetric:
-            clamped, zero = (v8.abs() == 127), (v8 == 0)
-        else:  # stored as u - 128
-            clamped, zero = (v8 == 127), (v8 == -128)
-        self.rows.append(
-            (act.packed_for, float(clamped.float().mean()), float(zero.float().mean()))
+        signed = plan[act.packed_for].input_symmetric
+        self.rows.append((act.packed_for, *clamp_zero_shares(act.x, signed)))
+
+
+def ir_block_stats(eng: IntEngine, calls):
+    """The same shares for the two 8-bit operands inside each recorded K5
+    call, from its plain steps 1-4 on the recorded inputs: the expand's
+    output as the depthwise reads it (unpacked) and the depthwise's output
+    packed for the project.  Rows are named by the layer that reads them."""
+    fused = getattr(eng, "_fused", {})  # MobileNetV2 engines only
+    body_of = {id(fused[m.body[0]][0]): m.body for m in eng.model.blocks if m.body[0] in fused}
+    rows = []
+    for name, args, kw in calls:
+        if name != "ir_block":
+            continue
+        _, dn, pn = body_of[id(args[1])]
+        ev, d8 = ir_ops.ir_block_operands_plain(
+            *args[:5], **{k: kw[k] for k in ("net1", "dw_in_signed", "net2", "proj_in_signed")}
         )
+        rows.append((f"{dn} (in K5)", *clamp_zero_shares(ev, kw["dw_in_signed"], packed=False)))
+        rows.append((f"{pn} (in K5)", *clamp_zero_shares(d8, kw["proj_in_signed"])))
+    return rows
 
 
 def reset_launches():
@@ -296,7 +331,8 @@ def expected_launches(path: str):
 def engine_phase(eng: IntEngine, x):
     """One forward through the kernels, launches counted, and one through
     the plain versions with every product's inputs recorded.  Returns
-    (kernel logits, plain logits, launches, recorded calls, requant stats)."""
+    (kernel logits, plain logits, launches, recorded calls, clamped and
+    zero shares of every 8-bit operand, K5's internal ones included)."""
     ref = IntEngine(eng.model, eng.plan, eng.params, device=eng.device)
     for name, attr in ENGINE_ATTRS.items():
         setattr(ref, attr, KERNELS[name]["plain"])
@@ -307,7 +343,7 @@ def engine_phase(eng: IntEngine, x):
         torch.cuda.synchronize()
     counts = launches()
     logits_ref = ref(x)
-    return logits, logits_ref, counts, rec.calls, stats.rows
+    return logits, logits_ref, counts, rec.calls, stats.rows + ir_block_stats(ref, rec.calls)
 
 
 def check_logits(logits, logits_ref, batch, num_classes):
@@ -330,32 +366,26 @@ def nbytes(*ts) -> int:
 
 
 def work(name, args, kw, out):
-    """(bytes, tensor-core operations, CUDA-core operations) the call must
-    move and do: each input read once, the output written once; 2 operations
-    per multiply-add.  Products over channels are tensor-core work; the
-    depthwise taps (K4, K5's middle) and K3's C = 3 stem are not."""
+    """(bytes, operations) the call must move and do: each input read once,
+    the output written once; 2 operations per int8 x int8 multiply-add."""
     x, w = args[0], args[1]
-    tensor = core = 0
     if name == "int8_gemm":
-        tensor = x.shape[0] * w.shape[0] * w.shape[1]
-    elif name == "conv_int8":
-        tensor = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
-    elif name == "dw_int8":
-        core = out.numel() * w.shape[0] * w.shape[1]
+        macs = x.shape[0] * w.shape[0] * w.shape[1]
+    elif name in ("conv_int8", "dw_int8"):  # dw weights are (kh, kw, 1, C)
+        macs = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
     elif name == "ir_block":
         w1, wd, w2 = args[1], args[3], args[5]
-        pixels = out.numel() // w2.shape[1]
-        tensor, core = pixels * (w1.numel() + w2.numel()), pixels * wd.numel()
+        macs = out.numel() // w2.shape[1] * (w1.numel() + wd.numel() + w2.numel())
     else:
         oh, ow, _, _ = stem_ops.stem_out_hw(x.shape[1], x.shape[2])
-        core = x.shape[0] * oh * ow * w.numel()
-    return nbytes(*(a for a in args if a is not None), out), 2 * tensor, 2 * core
+        macs = x.shape[0] * oh * ow * w.numel()
+    return nbytes(*(a for a in args if a is not None), out), 2 * macs
 
 
-def bound_s(nb, tensor_ops, core_ops):
+def bound_s(nb, ops):
     """(seconds for the bytes, seconds for the operations) at the card's
-    peaks; tensor and CUDA cores run side by side, so the slower counts."""
-    return nb / HBM_BYTES_PER_S, max(tensor_ops / INT8_OPS_PER_S, core_ops / CORE_OPS_PER_S)
+    memory rate and its int8 peak."""
+    return nb / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
 
 
 def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -375,10 +405,12 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile(run, tries: int = 3):
+def profile(run, complete=lambda ka: sum(e.self_device_time_total for e in ka) > 0,
+            tries: int = 3):
     """key_averages of one torch.profiler session (device activity) around
-    `run()`, after one warm-up run.  A session that records no device time
-    is made again, up to `tries` sessions; then it raises."""
+    `run()`, after one warm-up run.  A session whose key_averages are not
+    `complete` (by default: it recorded no device time) is made again, up
+    to `tries` sessions; then it raises."""
     run()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -386,10 +418,10 @@ def profile(run, tries: int = 3):
             run()
             torch.cuda.synchronize()
         ka = prof.key_averages()
-        if sum(e.self_device_time_total for e in ka) > 0:
+        if complete(ka):
             return ka
-        log("  torch.profiler recorded no device time; profiling again")
-    raise RuntimeError(f"torch.profiler recorded no device time in {tries} sessions")
+        log("  torch.profiler missed device activity; profiling again")
+    raise RuntimeError(f"torch.profiler missed device activity in {tries} sessions")
 
 
 def device_ms(fn, reps: int = 10):
@@ -477,17 +509,75 @@ def check_path(path: str, seed: int, images, device):
     want = expected_launches(path)
     if counts != want:
         raise AssertionError(f"{path}: launches per forward {counts}, expected {want}")
-    top1 = (logits.argmax(1) == float_logits.argmax(1)).float().mean().item()
-    log(f"{path} engine: logits bitwise equal to the plain path; launches {counts}; "
-        f"top-1 agreement with the float network {top1:.3f}")
+    log(f"{path} engine: logits bitwise equal to the plain path; launches {counts}")
+    float_agreement(path, logits, plan, float_logits)
+    block_errors(path, eng, images[:BATCH])
     for name, clamped, zero in stats:
         log(f"  {path} requant -> {name}: clamped {clamped:.4f} zero {zero:.4f}")
+        if clamped >= MAX_CLAMPED or zero >= MAX_ZERO:
+            raise AssertionError(f"{path}: the 8-bit input of {name} is degenerate: clamped "
+                                 f"{clamped:.4f} (limit {MAX_CLAMPED}), zero {zero:.4f} "
+                                 f"(limit {MAX_ZERO})")
     return eng, counts, checked
 
 
+def real_value(act, plan):
+    """An engine activation at its real scale, float64."""
+    v = act.x.double()
+    if act.packed_for is not None and not plan[act.packed_for].input_symmetric:
+        v = v + 128  # stored as u - 128
+    return v / 2.0 ** act.fl
+
+
+def block_errors(path, eng, images) -> None:
+    """Logs the relative L2 error of each block's output in the engine
+    against the float network run on the engine's own weights and biases:
+    where the integer network parts from the float one."""
+    model, plan, params = eng.model, eng.plan, eng.params
+    w_real = {n: params[n]["w"].float() / 2.0 ** plan[n].weight_fl for n in model.graph.names()}
+    b_real = {n: params[n]["b"].float() / 2.0 ** plan[n].out_fl for n in model.graph.names()}
+    _, want, _ = float_forward(model, w_real, b_real, head_input(model, images))
+    attr = "block_mbv2" if model.name == "mobilenet_v2" else "block"
+    method, got = getattr(eng, attr), []
+
+    def hooked(meta, *rest):
+        out = method(meta, *rest)
+        got.append(real_value(out, plan).permute(0, 3, 1, 2))
+        return out
+
+    setattr(eng, attr, hooked)
+    try:
+        eng(eng.condition_input(images))
+    finally:
+        delattr(eng, attr)
+    errs = [((g - w.double()).norm() / w.double().norm()).item() for g, w in zip(got, want)]
+    log(f"{path} engine: relative L2 error of each block's output against the float network: "
+        + " ".join(f"{e:.3f}" for e in errs))
+
+
+def float_agreement(path, logits, plan, float_logits) -> None:
+    """Logs how far the integer logits, at their real scale, are from the
+    float network's, per image beside the gap between the float network's
+    two best classes: where the gap is smaller than the error, the argmax
+    of the two may part."""
+    real = logits.double() / 2.0 ** plan["classifier"].out_fl
+    ref = float_logits.double()
+    err = (real - ref).abs().amax(1)
+    best = ref.topk(2, 1).values
+    gap = best[:, 0] - best[:, 1]
+    agree = real.argmax(1) == ref.argmax(1)
+    rel = ((real - ref).norm() / ref.norm()).item()
+    log(f"{path} engine: top-1 agreement with the float network "
+        f"{agree.double().mean().item():.3f}; relative L2 error of the logits {rel:.4f}; "
+        f"float logits' std {ref.std().item():.4f}")
+    for i in range(len(gap)):
+        log(f"  {path} image {i}: float top-1 gap {gap[i].item():.4f}, largest logit error "
+            f"{err[i].item():.4f}, top-1 {'agrees' if agree[i] else 'differs'}")
+
+
 def time_call(name, cargs, kw, out, reps: int, plain_reps: int = 3):
-    """(device ms, call ms, plain device ms, bytes, tensor ops, core ops) of
-    one kernel call.  One profiler session covers `reps` kernel calls and
+    """(device ms, call ms, plain device ms, bytes, operations) of one
+    kernel call.  One profiler session covers `reps` kernel calls and
     `plain_reps` plain ones: the port's kernels are the f8:: entries, the
     plain version everything else.  call ms = CUDA-event time of
     back-to-back wrapper calls, which includes the host's per-call
@@ -500,11 +590,11 @@ def time_call(name, cargs, kw, out, reps: int, plain_reps: int = 3):
         for _ in range(plain_reps):
             k["plain"](*cargs, **kw)
 
-    ka = profile(run)
-    ours = sum(e.self_device_time_total for e in ka if "f8::" in e.key)
-    rest = sum(e.self_device_time_total for e in ka if "f8::" not in e.key)
-    if ours <= 0 or rest <= 0:
-        raise RuntimeError(f"{name}: the profiler missed the kernel or its plain version")
+    def split(ka):
+        ours = sum(e.self_device_time_total for e in ka if "f8::" in e.key)
+        return ours, sum(e.self_device_time_total for e in ka) - ours
+
+    ours, rest = split(profile(run, complete=lambda ka: min(split(ka)) > 0))
     call_ms = time_ms(lambda: k["fn"](*cargs, **kw), reps=2 * reps)
     return (ours / reps / 1e3, call_ms, rest / plain_reps / 1e3) + work(name, cargs, kw, out)
 
@@ -566,17 +656,17 @@ def main(argv=None) -> int:
 
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
-    # timing: each call of each path's forward; a kernel's row sums its calls
+    # timing: each call of each path's forward; a kernel's row sums its
+    # calls, and K1's library time sums torch._int_mm at the same calls
     table = {n: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
-                     by_path={}) for n in KERNELS}
+                     library_ms=0.0 if n == "int8_gemm" else None, by_path={}) for n in KERNELS}
     for path, (eng, counts, checked) in paths.items():
         for name, cargs, kw, out, err in checked:
-            ms, call_ms, plain_ms, nb, tops, cops = time_call(name, cargs, kw, out, reps=10)
-            tb, to = bound_s(nb, tops, cops)
+            ms, call_ms, plain_ms, nb, ops = time_call(name, cargs, kw, out, reps=10)
+            tb, to = bound_s(nb, ops)
             log(f"{path} time {name} {describe(cargs, kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
                 f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms "
-                f"({'bytes' if tb > to else 'operations'}), {nb} bytes, {tops} tensor-core ops, "
-                f"{cops} CUDA-core ops")
+                f"({'bytes' if tb > to else 'operations'}), {nb} bytes, {ops} ops")
             row = table[name]
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += ms
@@ -584,20 +674,23 @@ def main(argv=None) -> int:
             row["bound_ms"] += 1e3 * max(tb, to)
             row["t_bytes"] += tb
             row["t_ops"] += to
-            by = row["by_path"].setdefault(path, dict(launches=counts[name], ms=0.0, bound_ms=0.0))
+            by = row["by_path"].setdefault(path, dict(
+                launches=counts[name], ms=0.0, bound_ms=0.0,
+                library_ms=0.0 if name == "int8_gemm" else None,
+            ))
             by["ms"] += ms
             by["bound_ms"] += 1e3 * max(tb, to)
-    ms, call_ms, plain_ms, nb, tops, cops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
-    tb, to = bound_s(nb, tops, cops)
+            if name == "int8_gemm":
+                (M, K), N = cargs[0].shape, cargs[1].shape[1]
+                lib_ms, lib_m = int_mm_ms(M, K, N, device)
+                log(f"{path} library int8_gemm: torch._int_mm at M={lib_m} (call's M={M}), "
+                    f"K={K}, N={N}: {lib_ms:.4f} ms")
+                row["library_ms"] += lib_ms
+                by["library_ms"] += lib_ms
+    ms, call_ms, plain_ms, nb, ops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
+    tb, to = bound_s(nb, ops)
     log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {tops} ops")
-
-    # library yardstick for K1: the ResNet-18 classifier's shape
-    cls = next(c for c in paths["resnet18"][2] if c[0] == "int8_gemm")
-    M, K = cls[1][0].shape
-    lib_ms, lib_m = int_mm_ms(M, K, cls[1][1].shape[1], device)
-    log(f"library: torch._int_mm at M={lib_m} (main path M={M}), K={K}, "
-        f"N={cls[1][1].shape[1]}: {lib_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {ops} ops")
 
     for path, (eng, _, _) in paths.items():
         time_forward(path, eng, images, card)
@@ -612,7 +705,7 @@ def main(argv=None) -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
-            library_ms=lib_ms if name == "int8_gemm" else None,
+            library_ms=row["library_ms"],
             by_path=row["by_path"],
         ))
     print(json.dumps({"kernels": kernels}))

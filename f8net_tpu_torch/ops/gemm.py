@@ -61,12 +61,6 @@ def int8_gemm_plain(
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def row_load_width(K: int, ptr: int) -> int:
-    """Bytes per load of an x row in the kernel: 16 where K and the pointer
-    allow it, else 4."""
-    return 16 if K % 16 == 0 and ptr % 16 == 0 else 4
-
-
 def int8_gemm(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
@@ -88,7 +82,8 @@ def int8_gemm(
     req(bias.shape == (N,), "int8_gemm: bias shape")
     req(K > 0 and K % 4 == 0, f"int8_gemm: needs K % 4 == 0, got {K}")
     req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "int8_gemm: contiguity")
-    req(x.data_ptr() % 4 == 0 and w.data_ptr() % 4 == 0, "int8_gemm: alignment")
+    vec_a = 16 if K % 16 == 0 else 4  # bytes per load of an x row in the kernel
+    req(x.data_ptr() % vec_a == 0 and w.data_ptr() % 4 == 0, "int8_gemm: alignment")
     req(epilogue in EPILOGUES, f"int8_gemm: unknown epilogue {epilogue!r}")
     req(-31 < net < 31, f"int8_gemm: shift {net} out of range")
     out = torch.empty(
@@ -98,8 +93,7 @@ def int8_gemm(
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
-            row_load_width(K, x.data_ptr()), EPILOGUES[epilogue], net, int(out_signed),
-            int(relu), _build.stream_of(x),
+            vec_a, EPILOGUES[epilogue], net, int(out_signed), int(relu), _build.stream_of(x),
         )
         int8_gemm.launches += 1
     _build.check(lib, rc, "int8_gemm")

@@ -38,19 +38,16 @@ from .fxp import INT32_MAX, requant_net, wrap_i32
 from .gemm import EPILOGUES, int8_gemm_plain
 
 
-def fused_ir_block_plain(
-    x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
-    w2: torch.Tensor, b2: torch.Tensor, carry: Optional[torch.Tensor] = None, *,
+def ir_block_operands_plain(
+    x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, *,
     net1: int = 0, dw_in_signed: bool = False, net2: int = 0, proj_in_signed: bool = False,
-    out: str = "int32", net_out: int = 0, out_signed: bool = False, shift_res: int = 0,
-    shift_carry: int = 0,
-) -> torch.Tensor:
-    """Plain PyTorch version of K5: the junction math with K1's plain GEMM,
-    `requant_net`, and a float64 depthwise on the unpacked values (exact:
-    |acc| <= k*k * 255 * 128, far below 2^53)."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Steps 1-4 of the junction math, plainly: the depthwise's 8-bit input
+    UNPACKED (int32, 0..255 or -127..127) and the project's 8-bit input
+    packed (int8), both (n, h, w, ce).  The depthwise runs in float64 on the
+    unpacked values (exact: |acc| <= k*k * 255 * 128, far below 2^53)."""
     n, h, w, cin = x.shape
     kh, kw, ce = wd.shape
-    cout = w2.shape[1]
     e = int8_gemm_plain(x.reshape(-1, cin), w1, b1)
     ev = requant_net(e, net1, 8, dw_in_signed).reshape(n, h, w, ce)
     acc = F.conv2d(
@@ -62,7 +59,25 @@ def fused_ir_block_plain(
     d8 = requant_net(d, net2, 8, proj_in_signed)
     if not proj_in_signed:
         d8 = d8 - 128
-    y = int8_gemm_plain(d8.to(torch.int8).reshape(-1, ce), w2, b2).reshape(n, h, w, cout)
+    return ev, d8.to(torch.int8)
+
+
+def fused_ir_block_plain(
+    x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor, carry: Optional[torch.Tensor] = None, *,
+    net1: int = 0, dw_in_signed: bool = False, net2: int = 0, proj_in_signed: bool = False,
+    out: str = "int32", net_out: int = 0, out_signed: bool = False, shift_res: int = 0,
+    shift_carry: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of K5: `ir_block_operands_plain`, then the
+    project with K1's plain GEMM, the carry add and the output epilogue."""
+    n, h, w, _ = x.shape
+    ce, cout = w2.shape
+    _, d8 = ir_block_operands_plain(
+        x, w1, b1, wd, bd, net1=net1, dw_in_signed=dw_in_signed, net2=net2,
+        proj_in_signed=proj_in_signed,
+    )
+    y = int8_gemm_plain(d8.reshape(-1, ce), w2, b2).reshape(n, h, w, cout)
     if carry is not None:
         y = wrap_i32((y.to(torch.int64) << shift_res) + (carry.to(torch.int64) << shift_carry))
         y = y.clamp(-INT32_MAX, INT32_MAX)

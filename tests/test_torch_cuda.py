@@ -74,19 +74,6 @@ def test_int8_gemm_kernel_vs_plain(dev, M, K, N, wrap):
         assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
 
 
-def test_int8_gemm_unaligned_rows(dev):
-    """x rows that start off the 16-byte grid take the 4-byte loads."""
-    rng = np.random.RandomState(4)
-    M, K, N = 65, 64, 68
-    x, w, b = _int8(rng, (M, K)), _int8(rng, (K, N), -127), _bias(rng, N, False)
-    buf = torch.empty(M * K + 4, dtype=torch.int8, device=dev)
-    xd = buf[4:].view(M, K)
-    xd.copy_(x.to(dev))
-    got = int8_gemm(xd, w.to(dev), b.to(dev), epilogue="requant8", net=9)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, epilogue="requant8", net=9))
-
-
 # (n, h, w, c, o, k, stride, padding, pad_value)
 CONV_SHAPES = [
     (2, 7, 7, 64, 64, 3, 2, 1, -128),
@@ -214,6 +201,12 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         int8_gemm(
             torch.zeros((4, 6), dtype=torch.int8, device=dev),
             torch.zeros((6, 4), dtype=torch.int8, device=dev),
+            torch.zeros(4, dtype=torch.int32, device=dev),
+        )
+    with pytest.raises(ValueError, match="alignment"):  # K % 16 == 0 takes 16-byte rows
+        buf = torch.zeros(4 * 16 + 4, dtype=torch.int8, device=dev)
+        int8_gemm(
+            buf[4:].view(4, 16), torch.zeros((16, 4), dtype=torch.int8, device=dev),
             torch.zeros(4, dtype=torch.int32, device=dev),
         )
     x24 = torch.zeros((1, 8, 8, 24), dtype=torch.int8, device=dev)
