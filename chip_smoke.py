@@ -3,29 +3,36 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's two main paths -- ResNet-18 and MobileNetV2 strict integer
-inference at 224x224, full width, 1000 classes -- through the entry points a
-user calls (`load_deploy_bundle`, `model_from_topology`,
+Drives the port's three main paths -- ResNet-18, MobileNetV2 and ResNet-50
+strict integer inference at 224x224, full width, 1000 classes -- through the
+entry points a user calls (`load_deploy_bundle`, `model_from_topology`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
 from the seed:
 
-  build    compile every CUDA kernel of the paths from f8net_tpu_torch/csrc
+  build    compile every CUDA kernel from f8net_tpu_torch/csrc, one nvcc per
+           source, all at once
   bundle   per path, a synthetic baked model (int8 weights, int32 biases,
            fraclens calibrated on the card), written as a deploy bundle and
            loaded back
   engine   per path, batch 8 through the kernels and through their plain
            PyTorch versions: logits bitwise equal, launches per forward as
            LAUNCHES_PER_FORWARD (ResNet-18: 19 K2 + 1 K3 + 1 K1; MobileNetV2:
-           1 K2 + 5 K4 + 11 K1 + 12 K5), non-degenerate logits, and every
-           8-bit operand (K5's internal ones included) clamped less than
-           MAX_CLAMPED and zero less than MAX_ZERO of the time; logged: how
-           far logits and block outputs are from the float network's
+           1 K2 + 5 K4 + 11 K1 + 12 K5; ResNet-50: 1 K3 + 19 K2 + 33 K7 +
+           1 K1), non-degenerate logits, and every 8-bit operand (K5's
+           internal ones included) clamped less than MAX_CLAMPED and zero
+           less than MAX_ZERO of the time; logged: how far logits and block
+           outputs are from the float network's
   kernels  every kernel call of those forwards (plus K1's requant8 epilogue at
-           a 1x1-conv shape) against its plain version on the same inputs
+           a 1x1-conv shape) against its plain version on the same inputs;
+           K1 on each of ResNet-50's K7 calls, equal to K7
+  flat     K6, which no engine calls, on the paths' own activations: each of
+           ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
+           BasicBlocks as two-conv chains on the flat raster (ring masked),
+           against its plain version on every row and against K2
   timing   device time (torch.profiler) of each kernel call, of its plain
-           version and, for K1, of torch._int_mm at the same shape; per
-           path, whole-forward images/s, device-busy share and device-time
-           breakdown at batch 8 and 64
+           version and, for K1 and K7, of torch._int_mm at the same shape (K7
+           also beside K1, K6 beside K2); per path, whole-forward images/s,
+           device-busy share and device-time breakdown at batch 8 and 64
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -50,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from f8net_tpu_torch.engine import IntEngine
+from f8net_tpu_torch.engine.int_engine import is_bottleneck
 from f8net_tpu_torch.export import (
     load_deploy_bundle, model_from_topology, save_deploy_bundle,
 )
@@ -57,6 +65,7 @@ from f8net_tpu_torch.models import get_model
 from f8net_tpu_torch.nn.pool import avgpool_shift_for
 from f8net_tpu_torch.nn.spec import ConvBNSpec
 from f8net_tpu_torch.ops import _build, conv as conv_ops, dw as dw_ops, gemm as gemm_ops
+from f8net_tpu_torch.ops import conv_flat as flat_ops, gemm_v2 as gemm_v2_ops
 from f8net_tpu_torch.ops import ir_block as ir_ops, stem as stem_ops
 from f8net_tpu_torch.quant import LayerPlan, QuantPlan
 from f8net_tpu_torch.utils import QuantConfig
@@ -101,16 +110,27 @@ KERNELS = {
         source="f8net_tpu_torch/csrc/ir_block.cu",
         replaces="f8net_tpu/ops/pallas_ir_block.py:317",
     ),
+    "int8_gemm_v2": dict(  # K1's contract: K1's plain version is K7's
+        fn=gemm_v2_ops.int8_gemm_v2, plain=gemm_ops.int8_gemm_plain,
+        source="f8net_tpu_torch/csrc/int8_gemm_v2.cu",
+        replaces="f8net_tpu/ops/pallas_gemm_v2.py:174",
+    ),
+    "conv_flat_int8": dict(
+        fn=flat_ops.conv_flat_int8, plain=flat_ops.conv_flat_int8_plain,
+        source="f8net_tpu_torch/csrc/conv_flat.cu",
+        replaces="f8net_tpu/ops/pallas_conv_flat.py:221",
+    ),
 }
 # the engine's product functions, by kernel: IntEngine attribute names
 ENGINE_ATTRS = {
     "int8_gemm": "_gemm", "conv_int8": "_convk", "stem_pool": "_stemk",
-    "dw_int8": "_dwk", "ir_block": "_irk",
+    "dw_int8": "_dwk", "ir_block": "_irk", "int8_gemm_v2": "_gemm2",
 }
 # kernel launches per forward of each main path; kernels not named: 0
 LAUNCHES_PER_FORWARD = {
     "resnet18": {"conv_int8": 19, "stem_pool": 1, "int8_gemm": 1},
     "mobilenet_v2": {"conv_int8": 1, "dw_int8": 5, "int8_gemm": 11, "ir_block": 12},
+    "resnet50": {"stem_pool": 1, "conv_int8": 19, "int8_gemm_v2": 33, "int8_gemm": 1},
 }
 
 
@@ -189,10 +209,14 @@ def synthetic_bundle(model, seed: int, images):
     rng = np.random.RandomState(seed)
     w_int, b_real, w_real = {}, {}, {}
     dev = images.device
-    # MobileNetV2's projects feed a residual stream with no ReLU: a gain of
-    # 1 instead of He's 2 keeps that stream from growing block by block, as
-    # the trained network's folded BatchNorm does
-    linear_out = {m.body[-1] for m in model.blocks} if model.name == "mobilenet_v2" else set()
+    # MobileNetV2's projects and a Bottleneck's last conv feed the residual
+    # stream with no ReLU of their own: a gain of 1 instead of He's 2 keeps
+    # that stream from growing block by block, as the trained network's
+    # folded BatchNorm does
+    linear_out = {
+        m.body[-1] for m in model.blocks
+        if model.name == "mobilenet_v2" or is_bottleneck(model.graph, m)
+    }
     for name in model.graph.names():
         spec = model.graph[name]
         shape = spec.weight_shape()
@@ -369,8 +393,10 @@ def work(name, args, kw, out):
     """(bytes, operations) the call must move and do: each input read once,
     the output written once; 2 operations per int8 x int8 multiply-add."""
     x, w = args[0], args[1]
-    if name == "int8_gemm":
+    if name in ("int8_gemm", "int8_gemm_v2"):
         macs = x.shape[0] * w.shape[0] * w.shape[1]
+    elif name == "conv_flat_int8":  # every row of the raster, the ring's too
+        macs = x.shape[0] * w.numel()
     elif name in ("conv_int8", "dw_int8"):  # dw weights are (kh, kw, 1, C)
         macs = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
     elif name == "ir_block":
@@ -615,6 +641,122 @@ def time_forward(path: str, eng: IntEngine, images, card: str) -> None:
                 f"{e.count // 5} launches: {e.key[:90]}")
 
 
+def layers_by_weight(eng: IntEngine):
+    """{id of a layer's weight tensor: layer name}: a recorded call carries
+    the engine's own weight tensors, which name the layer it computes."""
+    return {id(p["w"]): name for name, p in eng.params.items()}
+
+
+def k7_against_k1(checked) -> int:
+    """K1 on each recorded K7 call's inputs: the two kernels share one
+    contract, so their outputs must be equal bit for bit.  Returns the
+    number of calls checked."""
+    n = 0
+    for name, cargs, kw, out, _ in checked:
+        if name != "int8_gemm_v2":
+            continue
+        k1 = gemm_ops.int8_gemm(*cargs, **kw)
+        if not torch.equal(k1, out):
+            raise AssertionError(f"int8_gemm_v2 {describe(cargs, kw)}: differs from int8_gemm")
+        n += 1
+    return n
+
+
+def flat_kwargs(kw, geom, mask_pad: bool, mask_value: int):
+    """K6's arguments for a recorded stride-1 3x3 K2 call: the call's own
+    epilogue on the flat raster of geometry `geom`."""
+    return dict(
+        geom=geom, kernel=(3, 3), epilogue=kw["epilogue"], net=kw.get("net", 0),
+        out_signed=kw.get("out_signed", True), relu=kw.get("relu", False),
+        mask_pad=mask_pad, mask_value=mask_value,
+    )
+
+
+def flat_phase(paths):
+    """K6 on the paths' own activations, each call against its plain
+    version on every row of the raster and, unpacked, against K2:
+      * ResNet-50's stride-1 3x3 convs, one K6 call each on the recorded
+        input packed flat (pad = the layer's packed zero), the ring
+        unmasked: what lands there is computed across image boundaries;
+      * ResNet-18's stride-1 BasicBlocks as two-conv chains on the flat
+        raster: body.0 into requant8 with its ring masked to body.1's
+        packed zero, then body.1 into int32 -- equal to K2's chain only if
+        the ring mask is right.
+    Returns [(label, [(K6 args, kwargs, output, max abs err)], [(K2 args,
+    kwargs)])], one entry per conv or chain."""
+    groups = []
+    eng, _, checked = paths["resnet50"]
+    names = layers_by_weight(eng)
+    for name, cargs, kw, out, _ in checked:
+        if name != "conv_int8" or kw["stride"] != 1 or cargs[1].shape[0] != 3:
+            continue
+        x, w, b = cargs
+        xf, geom = flat_ops.pack_flat(x, 1, kw["pad_value"])
+        fkw = flat_kwargs(kw, geom, mask_pad=False, mask_value=0)
+        y, err = compare("conv_flat_int8", (xf, w, b), fkw)
+        if not torch.equal(flat_ops.unpack_flat(y, geom, 1), out):
+            raise AssertionError(f"conv_flat_int8 at {names[id(w)]}: differs from conv_int8")
+        groups.append((f"resnet50 {names[id(w)]}", [((xf, w, b), fkw, y, err)], [(cargs, kw)]))
+    eng, _, checked = paths["resnet18"]
+    names = layers_by_weight(eng)
+    calls = {names[id(c[1][1])]: c for c in checked if c[0] == "conv_int8"}
+    for meta in eng.model.blocks:
+        if meta.shortcut is not None:
+            continue
+        _, (x0, w0, b0), kw0, out0, _ = calls[meta.body[0]]
+        _, args1, kw1, out1, _ = calls[meta.body[1]]
+        xf, geom = flat_ops.pack_flat(x0, 1, kw0["pad_value"])
+        k0 = flat_kwargs(kw0, geom, mask_pad=True, mask_value=kw1["pad_value"])
+        y0, e0 = compare("conv_flat_int8", (xf, w0, b0), k0)
+        k1 = flat_kwargs(kw1, geom, mask_pad=True, mask_value=0)
+        y1, e1 = compare("conv_flat_int8", (y0,) + args1[1:], k1)
+        if not (torch.equal(flat_ops.unpack_flat(y0, geom, 1), out0)
+                and torch.equal(flat_ops.unpack_flat(y1, geom, 1), out1)):
+            raise AssertionError(f"conv_flat_int8 chain of {meta.body}: differs from conv_int8's")
+        groups.append((
+            f"resnet18 {meta.body[0]} -> {meta.body[1]}",
+            [((xf, w0, b0), k0, y0, e0), ((y0,) + args1[1:], k1, y1, e1)],
+            [((x0, w0, b0), kw0), (args1, kw1)],
+        ))
+    return groups
+
+
+def new_row(name):
+    has_library = name in ("int8_gemm", "int8_gemm_v2")
+    return dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
+                library_ms=0.0 if has_library else None, by_path={})
+
+
+def time_into(row, path, launches, name, cargs, kw, out, err):
+    """Time one kernel call (time_call), log it, and add it to the kernel's
+    row and to the row's entry for `path`.  Returns the kernel's ms."""
+    ms, call_ms, plain_ms, nb, ops = time_call(name, cargs, kw, out, reps=10)
+    tb, to = bound_s(nb, ops)
+    log(f"{path} time {name} {describe(cargs, kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms "
+        f"({'bytes' if tb > to else 'operations'}), {nb} bytes, {ops} ops")
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["ms"] += ms
+    row["plain_ms"] += plain_ms
+    row["bound_ms"] += 1e3 * max(tb, to)
+    row["t_bytes"] += tb
+    row["t_ops"] += to
+    by = row["by_path"].setdefault(path, dict(
+        launches=launches, ms=0.0, bound_ms=0.0,
+        library_ms=None if row["library_ms"] is None else 0.0,
+    ))
+    by["ms"] += ms
+    by["bound_ms"] += 1e3 * max(tb, to)
+    return ms
+
+
+def add_to(row, path, key, ms):
+    """Add a yardstick's ms to a kernel's row and to its entry for `path`."""
+    row[key] = row.get(key, 0.0) + ms
+    by = row["by_path"][path]
+    by[key] = (by.get(key) or 0.0) + ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -642,6 +784,13 @@ def main(argv=None) -> int:
     ).to(device)
     paths = {path: check_path(path, args.seed, images, device) for path in LAUNCHES_PER_FORWARD}
 
+    n = k7_against_k1(paths["resnet50"][2])
+    log(f"resnet50: all {n} int8_gemm_v2 calls bitwise equal to int8_gemm on the same inputs")
+    flat = flat_phase(paths)
+    for label, k6_calls, _ in flat:
+        log(f"kernel conv_flat_int8 {label}: {len(k6_calls)} call(s) equal to its plain version "
+            f"on every row and, unpacked, to conv_int8")
+
     # K1's requant8 epilogue at ResNet-50's 1x1-conv shape (M = 8*56*56,
     # K = 64, N = 256): checked and timed, not a main-path call
     g = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -657,36 +806,29 @@ def main(argv=None) -> int:
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
     # timing: each call of each path's forward; a kernel's row sums its
-    # calls, and K1's library time sums torch._int_mm at the same calls
-    table = {n: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
-                     library_ms=0.0 if n == "int8_gemm" else None, by_path={}) for n in KERNELS}
+    # calls, a GEMM's library time sums torch._int_mm at the same calls, and
+    # K7's row also sums K1's time at its calls
+    table = {n: new_row(n) for n in KERNELS}
     for path, (eng, counts, checked) in paths.items():
         for name, cargs, kw, out, err in checked:
-            ms, call_ms, plain_ms, nb, ops = time_call(name, cargs, kw, out, reps=10)
-            tb, to = bound_s(nb, ops)
-            log(f"{path} time {name} {describe(cargs, kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms "
-                f"({'bytes' if tb > to else 'operations'}), {nb} bytes, {ops} ops")
-            row = table[name]
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row["ms"] += ms
-            row["plain_ms"] += plain_ms
-            row["bound_ms"] += 1e3 * max(tb, to)
-            row["t_bytes"] += tb
-            row["t_ops"] += to
-            by = row["by_path"].setdefault(path, dict(
-                launches=counts[name], ms=0.0, bound_ms=0.0,
-                library_ms=0.0 if name == "int8_gemm" else None,
-            ))
-            by["ms"] += ms
-            by["bound_ms"] += 1e3 * max(tb, to)
-            if name == "int8_gemm":
+            time_into(table[name], path, counts[name], name, cargs, kw, out, err)
+            if name in ("int8_gemm", "int8_gemm_v2"):
                 (M, K), N = cargs[0].shape, cargs[1].shape[1]
                 lib_ms, lib_m = int_mm_ms(M, K, N, device)
-                log(f"{path} library int8_gemm: torch._int_mm at M={lib_m} (call's M={M}), "
+                log(f"{path} library {name}: torch._int_mm at M={lib_m} (call's M={M}), "
                     f"K={K}, N={N}: {lib_ms:.4f} ms")
-                row["library_ms"] += lib_ms
-                by["library_ms"] += lib_ms
+                add_to(table[name], path, "library_ms", lib_ms)
+            if name == "int8_gemm_v2":
+                k1_ms = device_ms(lambda: gemm_ops.int8_gemm(*cargs, **kw))[0]
+                log(f"{path} int8_gemm at the same call: {k1_ms:.4f} ms")
+                add_to(table[name], path, "k1_ms", k1_ms)
+    row = table["conv_flat_int8"]
+    for label, k6_calls, k2_calls in flat:
+        path = label.split()[0]
+        k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c) for c in k6_calls)
+        k2 = sum(device_ms(lambda: conv_ops.conv_int8(*a, **kw))[0] for a, kw in k2_calls)
+        log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms at the same call(s)")
+        add_to(row, path, "k2_ms", k2)
     ms, call_ms, plain_ms, nb, ops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
     tb, to = bound_s(nb, ops)
     log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
@@ -699,13 +841,14 @@ def main(argv=None) -> int:
     kernels = []
     for name, k in KERNELS.items():
         row = table[name]
+        extra_keys = {key: row[key] for key in ("k1_ms", "k2_ms") if key in row}
         kernels.append(dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
             launches=sum(counts[name] for _, counts, _ in paths.values()),
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
-            library_ms=row["library_ms"],
+            library_ms=row["library_ms"], **extra_keys,
             by_path=row["by_path"],
         ))
     print(json.dumps({"kernels": kernels}))

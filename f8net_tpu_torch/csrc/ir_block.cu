@@ -38,7 +38,6 @@
 
 namespace f8 {
 
-constexpr int kMaxSmem = 232448;  // 227 KB, the most one block can have
 // the most each of two blocks can have on one SM: 228 KB per SM, less 1 KB
 // the hardware reserves per block
 constexpr int kHalfSmSmem = 233472 / 2 - 1024;

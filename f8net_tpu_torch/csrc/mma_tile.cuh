@@ -31,6 +31,7 @@ constexpr int kBN = 64;       // output columns per block
 constexpr int kBK = 64;       // reduction bytes per shared-memory stage
 constexpr int kLDS = kBK + 16;
 constexpr int kThreads = 128;
+constexpr int kMaxSmem = 232448;  // 227 KB, the most shared memory one block can have
 
 struct SmemTile {
   alignas(16) int8_t a[kBM * kLDS];
@@ -131,13 +132,14 @@ __device__ __forceinline__ uint32_t load_row4(const int8_t* row, int n, int N) {
 }
 
 // Stage B[k0 .. k0+kvalid, n0 .. n0+64) of a (K, N) row-major int8 matrix
-// whose row k0 starts at `w` (row stride N) as sb[n][k], row stride kLDS.
+// whose row k0 starts at `w` (row stride N) as sb[n][k], row stride ldb
+// (kLDS for a one-step tile; K7 keeps a whole K-deep slab at a wider stride).
 // Each thread moves two 4 x 4 byte blocks: four row loads, a register
 // transpose with byte permutes, four 32-bit column stores.  Rows past kvalid
 // and columns past N are staged as 0.  kVec4 requires N % 4 == 0.
 template <bool kVec4>
 __device__ __forceinline__ void load_b_kn(int8_t* sb, const int8_t* w, int N, int kvalid,
-                                          int n0) {
+                                          int n0, int ldb = kLDS) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int q = threadIdx.x + j * kThreads;
@@ -157,7 +159,7 @@ __device__ __forceinline__ void load_b_kn(int8_t* sb, const int8_t* w, int N, in
         __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc)
-      *reinterpret_cast<uint32_t*>(sb + (nq * 4 + cc) * kLDS + k) = c[cc];
+      *reinterpret_cast<uint32_t*>(sb + (nq * 4 + cc) * ldb + k) = c[cc];
   }
 }
 
@@ -165,6 +167,31 @@ template <bool kVec4>
 __device__ __forceinline__ void load_b_kn(SmemTile& s, const int8_t* w, int N, int kvalid,
                                           int n0) {
   load_b_kn<kVec4>(s.b, w, N, kvalid, n0);
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async, L2 only); with
+// `valid` false it reads nothing and writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(int8_t* dst, const int8_t* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0;
 }
 
 // f(row, col, value) for each accumulator element this thread holds, with

@@ -1,13 +1,22 @@
 """Integer-only inference engine, strict rung -- the port of
-`f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`) for two families.
+`f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`) for ResNets and
+MobileNetV2.
 
-ResNet with BasicBlocks (`_forward`'s ResNet branch `:1283-1361` and average
-pool/classifier `:1383-1415`, as the JAX engine runs it with
+ResNet, BasicBlock (18, 34) and Bottleneck (50, 101, 152) alike
+(`_forward`'s ResNet branch `:1283-1361`, `_block_resnet_int` `:1054-1073`
+and average pool/classifier `:1383-1415`, as the JAX engine runs it with
 `stem_kernel=True` and the Pallas route of `conv_int` `:693-759`):
   * the head (7x7/s2 conv + bias + ReLU + 3x3/s2 maxpool) in K3 (ops.stem);
-  * every 3x3 conv and the 1x1/s2 shortcuts in K2 (ops.conv): intra-block
-    convs end in the requant8 epilogue, packed for their unique consumer;
-    the last body conv and the shortcut end in int32 for the residual add.
+  * every 3x3 conv (stride 1 and 2) and the 1x1/s2 shortcuts in K2
+    (ops.conv);
+  * in a Bottleneck block (a body of three convs whose middle one is not
+    depthwise) every 1x1/s1 conv -- body.0, body.2, and the 1x1/s1 shortcut
+    of stage 0's first block -- in K7 (ops.gemm_v2), the persistent GEMM
+    the JAX engine takes for 1x1/s1 convs under F8NET_PALLAS_GEMM=v2
+    (`:712-721`): 33 launches per ResNet-50 forward, beside 19 of K2;
+  * intra-block convs end in the requant8 epilogue, packed for their unique
+    consumer; the last body conv and the shortcut end in int32 for the
+    residual add.
 
 MobileNetV2 (`_forward`'s MobileNetV2 branch `:1367-1381`,
 `_block_mbv2_int` `:1112-1136`, `try_fused_ir` `:862-1031` in its strict
@@ -45,6 +54,7 @@ from ..nn.spec import LinearSpec
 from ..ops import conv as _conv
 from ..ops import dw as _dw
 from ..ops import gemm as _gemm
+from ..ops import gemm_v2 as _gemm_v2
 from ..ops import ir_block as _ir
 from ..ops import stem as _stem
 from ..ops.fxp import INT32_MAX, fix_quant, shift_requant, wrap_i32
@@ -84,6 +94,13 @@ def is_pointwise(spec) -> bool:
     )
 
 
+def is_bottleneck(graph, meta) -> bool:
+    """A ResNet Bottleneck block: a body of three convs whose middle one is
+    a full (not depthwise) conv -- which sets it apart from MobileNetV2's
+    expand / depthwise / project body."""
+    return len(meta.body) == 3 and not graph[meta.body[1]].is_depthwise
+
+
 def fuses_ir(graph, meta) -> bool:
     """Whether an inverted-residual block runs whole in K5: a body of three,
     1x1/s1 expand, square kxk depthwise at stride 1 with pad (k-1)/2, 1x1/s1
@@ -109,12 +126,7 @@ class IntEngine:
 
     def __init__(self, model, plan, int_params, cfg=None, device="cuda"):
         self.device = resolve_device(device)
-        if model.name.startswith("resnet"):
-            if any(len(m.body) != 2 for m in model.blocks):
-                raise NotImplementedError(
-                    f"{model.name}: Bottleneck ResNets are not ported yet (ROADMAP item 6)"
-                )
-        elif model.name != "mobilenet_v2":
+        if not (model.name.startswith("resnet") or model.name == "mobilenet_v2"):
             raise NotImplementedError(
                 f"{model.name}: no engine path is ported yet (ROADMAP item 7)"
             )
@@ -129,6 +141,12 @@ class IntEngine:
         self.params = add_zero_point_bias(self.graph, plan, params)
         self._gemm, self._convk, self._stemk = _gemm.int8_gemm, _conv.conv_int8, _stem.stem_pool
         self._dwk, self._irk = _dw.dw_int8, _ir.fused_ir_block
+        self._gemm2 = _gemm_v2.int8_gemm_v2
+        # the 1x1/s1 convs of Bottleneck blocks, which run in K7
+        self._on_v2 = {
+            name for m in model.blocks if is_bottleneck(self.graph, m)
+            for name in (*m.body, m.shortcut) if name and is_pointwise(self.graph[name])
+        }
         if model.name == "mobilenet_v2":
             w = self.params["head"]["w"]
             cpad = -w.shape[2] % 16
@@ -225,8 +243,8 @@ class IntEngine:
 
     def _product(self, name, x8, w, pack_output_for, relu=False) -> IAct:
         """Layer `name` on its packed operand `x8`, routed by the layer's
-        structure: depthwise -> K4, 1x1/s1 -> K1 over N*H*W rows, any other
-        conv -> K2."""
+        structure: depthwise -> K4, 1x1/s1 -> K7 in a Bottleneck block and
+        K1 elsewhere, as GEMMs over N*H*W rows, any other conv -> K2."""
         pl = self.plan[name]
         spec = self.graph[name]
         b, pad = self._bias_pad(name)
@@ -240,7 +258,8 @@ class IntEngine:
             )
         if is_pointwise(spec):
             n, h, wd, c = x8.shape
-            y = self._gemm(x8.reshape(-1, c), w.reshape(c, -1), b, relu=relu, **epi)
+            gemm = self._gemm2 if name in self._on_v2 else self._gemm
+            y = gemm(x8.reshape(-1, c), w.reshape(c, -1), b, relu=relu, **epi)
             y = y.reshape(n, h, wd, -1)
         else:
             kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad, relu=relu)
@@ -251,7 +270,8 @@ class IntEngine:
         return IAct(y, self.plan[pack_output_for].input_fl, packed_for=pack_output_for)
 
     def block(self, meta, a: IAct) -> IAct:
-        """ResNet BasicBlock (`_block_resnet_int`, `int_engine.py:1054-1073`)."""
+        """ResNet BasicBlock or Bottleneck (`_block_resnet_int`,
+        `int_engine.py:1054-1073`)."""
         v = a
         for prev, nxt in zip(meta.body[:-1], meta.body[1:]):
             v = self.conv_int(prev, v, pack_output_for=nxt)

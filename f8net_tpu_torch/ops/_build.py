@@ -27,7 +27,9 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("int8_gemm", "int8_conv", "stem_pool", "dw_conv", "ir_block")
+SOURCES = (
+    "int8_gemm", "int8_conv", "stem_pool", "dw_conv", "ir_block", "int8_gemm_v2", "conv_flat",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -10,17 +10,21 @@ Shapes cover the ragged edges the main path does not: M, N and C that are
 not multiples of the 64-wide tiles, a GEMM N (class count) not a multiple of
 4, GEMM K not a multiple of 16 (MobileNetV2's K = 24) or of 4, odd spatial
 sizes at stride 2, 5x5 kernels, depthwise channel counts that split unevenly
-across blocks, K5 blocks at 7x7 x 960 channels and at Cin = Cout = 24,
-negative shifts, ReLU, and biases that make the int32 epilogue and the K5
-carry add wrap.  Every comparison is bitwise.
+across blocks, K5 blocks at 7x7 x 960 channels and at Cin = Cout = 24, K7 at
+K = 2048 (its largest weight slab on ResNet-50) with an M tail and at
+M = 25088, K6 on every row of 7x7 and 56x56 rasters with the ring masked and
+not, negative shifts, ReLU, and biases that make the int32 epilogue and the
+K5 carry add wrap.  Every comparison is bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from f8net_tpu_torch.ops import conv_int8, dw_int8, fused_ir_block, int8_gemm, stem_pool
+from f8net_tpu_torch.ops import conv_flat_int8, conv_int8, dw_int8, fused_ir_block, int8_gemm
+from f8net_tpu_torch.ops import int8_gemm_v2, pack_flat, stem_pool, unpack_flat
 from f8net_tpu_torch.ops.conv import conv_int8_plain
+from f8net_tpu_torch.ops.conv_flat import conv_flat_int8_plain
 from f8net_tpu_torch.ops.dw import dw_int8_plain
 from f8net_tpu_torch.ops.gemm import int8_gemm_plain
 from f8net_tpu_torch.ops.ir_block import fused_ir_block_plain
@@ -72,6 +76,57 @@ def test_int8_gemm_kernel_vs_plain(dev, M, K, N, wrap):
         got = int8_gemm(x.to(dev), w.to(dev), b.to(dev), **kw)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
+
+
+@pytest.mark.parametrize(
+    "M,K,N",
+    [(392, 2048, 512), (25088, 64, 256), (25088, 64, 64), (1568, 1024, 512), (130, 48, 72),
+     (65, 16, 4), (1, 3328, 8), (200, 96, 132)],
+)
+@pytest.mark.parametrize("wrap", [False, True])
+def test_int8_gemm_v2_kernel_vs_k1_and_plain(dev, M, K, N, wrap):
+    rng = np.random.RandomState(M + K + N + wrap + 1)
+    x, w, b = _int8(rng, (M, K)), _int8(rng, (K, N), -127), _bias(rng, N, wrap)
+    xd, wd, bd = x.to(dev), w.to(dev), b.to(dev)
+    for kw in GEMM_EPILOGUES:
+        got = int8_gemm_v2(xd, wd, bd, **kw)
+        k1 = int8_gemm(xd, wd, bd, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k1), kw
+        assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
+
+
+# (n, h, w, c, o, k, pad_value)
+FLAT_SHAPES = [
+    (8, 7, 7, 512, 512, 3, -128),
+    (2, 56, 56, 64, 64, 3, -128),
+    (1, 56, 56, 512, 64, 3, 0),
+    (2, 7, 7, 64, 68, 3, 0),
+    (2, 9, 11, 48, 20, 5, -128),
+    (3, 1, 2, 16, 8, 3, 0),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,o,k,pad_value", FLAT_SHAPES)
+@pytest.mark.parametrize("mask_pad", [True, False])
+def test_conv_flat_kernel_vs_plain(dev, n, h, w, c, o, k, pad_value, mask_pad):
+    rng = np.random.RandomState(h * w + c + o + k + mask_pad)
+    p = (k - 1) // 2
+    x, wt = _int8(rng, (n, h, w, c)), _int8(rng, (k, k, c, o), -127)
+    b = _bias(rng, o, wrap=not mask_pad)
+    xf, geom = pack_flat(x, p, pad_value)
+    for kw in GEMM_EPILOGUES:
+        if kw["epilogue"] == "int32":
+            mask_value = 3
+        else:  # the consumer's packed zero
+            mask_value = 0 if kw["out_signed"] else -128
+        kw = dict(kw, geom=geom, kernel=(k, k), mask_pad=mask_pad, mask_value=mask_value)
+        got = conv_flat_int8(xf.to(dev), wt.to(dev), b.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), conv_flat_int8_plain(xf, wt, b, **kw)), kw  # every row
+        if kw["epilogue"] == "int32" and not kw.get("relu"):  # the interior is K2's conv
+            want = conv_int8_plain(x, wt, b, padding=p, pad_value=pad_value)
+            assert torch.equal(unpack_flat(got.cpu(), geom, p), want)
 
 
 # (n, h, w, c, o, k, stride, padding, pad_value)
@@ -226,6 +281,30 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="mixed devices"):
         w24 = torch.zeros((24, 48), dtype=torch.int8, device=dev)
         fused_ir_block(x24, w24, b48, wd.cpu(), b48, w2, b24)
+    x24m = torch.zeros((4, 24), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="K % 16"):
+        int8_gemm_v2(x24m, torch.zeros((24, 8), dtype=torch.int8, device=dev), b24[:8])
+    with pytest.raises(ValueError, match="K <= 3328"):
+        int8_gemm_v2(
+            torch.zeros((4, 3344), dtype=torch.int8, device=dev),
+            torch.zeros((3344, 8), dtype=torch.int8, device=dev), b24[:8],
+        )
+    with pytest.raises(ValueError, match="N % 4"):
+        int8_gemm_v2(
+            torch.zeros((4, 16), dtype=torch.int8, device=dev),
+            torch.zeros((16, 10), dtype=torch.int8, device=dev),
+            torch.zeros(10, dtype=torch.int32, device=dev),
+        )
+    xf, geom = pack_flat(x24, 1, 0)
+    w3 = torch.zeros((3, 3, 24, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="C % 16"):
+        conv_flat_int8(xf, w3, b24[:16], geom=geom)
+    xf16, geom16 = pack_flat(x16, 1, 0)
+    w33 = torch.zeros((3, 3, 16, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="odd square"):
+        conv_flat_int8(xf16, w33, b24[:16], geom=geom16, kernel=(2, 2))
+    with pytest.raises(ValueError, match="mask_value"):
+        conv_flat_int8(xf16, w33, b24[:16], geom=geom16, epilogue="requant8", mask_value=200)
 
 
 def test_launch_counters_count_kernel_launches(dev):
@@ -238,7 +317,7 @@ def test_launch_counters_count_kernel_launches(dev):
     assert int8_gemm.launches == before + 1
 
 
-@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2"])
+@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50"])
 def test_engine_kernels_bitwise_equal_plain(dev, path):
     """Each main path at 64 px through the kernels and through the plain
     versions, on the card: launches per forward as chip_smoke.py checks them

@@ -15,6 +15,7 @@ from f8net_tpu.utils import QuantConfig as JaxQuantConfig
 from f8net_tpu_torch.engine import IntEngine
 from f8net_tpu_torch.export import params_from_numpy
 from f8net_tpu_torch.models import get_model
+from f8net_tpu_torch.ops import gemm as gemm_ops
 from f8net_tpu_torch.utils import QuantConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,10 +102,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
     IntEngine(model, plan, params, device="cpu")  # asked for explicitly: runs
 
 
-def test_bottleneck_resnet_not_ported():
-    model = get_model("resnet50", QuantConfig(), num_classes=4, image_size=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        IntEngine(model, None, {}, device="cpu")
+def test_resnet50_routes_pointwise_convs_to_k7():
+    """A ResNet-50 engine sends each Bottleneck block's 1x1/s1 convs --
+    body.0, body.2 and stage 0's 1x1/s1 shortcut, 33 in all -- to K7, and
+    nothing else: the 3x3 convs and the 1x1/s2 shortcuts stay on K2."""
+    model = get_model("resnet50", QuantConfig(quant_avgpool=True), num_classes=4, image_size=32)
+    records = [(n, 6, 7, False) for n in model.graph.names()]
+    arrays = {
+        n: {"w": np.zeros(model.graph[n].weight_shape(), np.int8),
+            "b": np.zeros(model.graph[n].weight_shape()[-1], np.int32)}
+        for n in model.graph.names()
+    }
+    eng = IntEngine(model, *params_from_numpy(records, arrays, device="cpu"), device="cpu")
+    want = {n for m in model.blocks for n in (m.body[0], m.body[2])}
+    want.add("stage_0_layer_0.shortcut.0")
+    assert eng._on_v2 == want and len(want) == 33
+    routed = []
+    eng._gemm2 = lambda *a, **kw: routed.append(a[1].shape) or gemm_ops.int8_gemm_plain(*a, **kw)
+    eng(torch.zeros((1, 32, 32, 3), dtype=torch.uint8))
+    assert len(routed) == 33
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):

@@ -48,3 +48,37 @@ def test_smoke_mobilenet_v2_phases_on_cpu():
     # (10 residual K5 blocks, 2 other K5 blocks, 3 stride-2 blocks), 1 for
     # the classifier, and 2 inside each of the 12 K5 blocks
     _rehearse("mobilenet_v2", 50)
+
+
+def test_smoke_resnet50_phases_on_cpu():
+    # ResNet-50, 53 requants: 32 fused epilogues (body.0 -> body.1 and
+    # body.1 -> body.2 in each of 16 blocks), 16 block-input packs for
+    # body.0, 4 for the shortcuts (stage 0's 1x1/s1 and three 1x1/s2), 1 for
+    # the classifier
+    _rehearse("resnet50", 53)
+
+
+def test_smoke_k7_and_flat_phases_on_cpu():
+    """K1 on every K7 call of a ResNet-50 forward, and the K6 phase on the
+    recorded activations of ResNet-50's 13 stride-1 3x3 convs and
+    ResNet-18's 5 stride-1 BasicBlocks: on the CPU each call is the plain
+    version, which must equal K2's plain version unpacked."""
+    images = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32))
+    paths = {}
+    for path in ("resnet18", "resnet50"):
+        model, plan, params, _ = chip_smoke.load_synthetic_model(
+            0, 64, 10, "cpu", images, model_name=path
+        )
+        eng = IntEngine(model, plan, params, device="cpu")
+        _, _, counts, calls, _ = chip_smoke.engine_phase(eng, eng.condition_input(images))
+        checked = [(n, a, kw, *chip_smoke.compare(n, a, kw)) for n, a, kw in calls]
+        paths[path] = (eng, counts, checked)
+    assert chip_smoke.k7_against_k1(paths["resnet50"][2]) == 33
+    flat = chip_smoke.flat_phase(paths)
+    assert [len(k6) for _, k6, _ in flat] == [1] * 13 + [2] * 5
+    assert sum(label.startswith("resnet18") for label, _, _ in flat) == 5
+    for _, k6, k2 in flat:
+        assert len(k6) == len(k2)
+        for args, kw, out, err in k6:
+            nb, ops = chip_smoke.work("conv_flat_int8", args, kw, out)
+            assert err == 0 and out.shape[0] == args[0].shape[0] and nb > 0 and ops > 0
