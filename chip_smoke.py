@@ -395,8 +395,13 @@ def work(name, args, kw, out):
     x, w = args[0], args[1]
     if name in ("int8_gemm", "int8_gemm_v2"):
         macs = x.shape[0] * w.shape[0] * w.shape[1]
-    elif name == "conv_flat_int8":  # every row of the raster, the ring's too
-        macs = x.shape[0] * w.numel()
+    elif name == "conv_flat_int8":  # every row of the raster; a masked ring needs no taps
+        rows = x.shape[0]
+        if kw["mask_pad"]:
+            n, h2, w2 = kw["geom"]
+            p = (w.shape[0] - 1) // 2
+            rows = n * (h2 - 2 * p) * (w2 - 2 * p)
+        macs = rows * w.numel()
     elif name in ("conv_int8", "dw_int8"):  # dw weights are (kh, kw, 1, C)
         macs = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
     elif name == "ir_block":

@@ -305,6 +305,10 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         conv_flat_int8(xf16, w33, b24[:16], geom=geom16, kernel=(2, 2))
     with pytest.raises(ValueError, match="mask_value"):
         conv_flat_int8(xf16, w33, b24[:16], geom=geom16, epilogue="requant8", mask_value=200)
+    # a halo of 1501 rows (2 * 1501 staged rows of 80 bytes) exceeds one block's shared memory
+    xw, geomw = pack_flat(torch.zeros((1, 1, 1498, 16), dtype=torch.int8, device=dev), 1, 0)
+    with pytest.raises(RuntimeError, match="rows of width 1500 at pad 1"):
+        conv_flat_int8(xw, w33, b24[:16], geom=geomw)
 
 
 def test_launch_counters_count_kernel_launches(dev):

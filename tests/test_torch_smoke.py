@@ -79,6 +79,10 @@ def test_smoke_k7_and_flat_phases_on_cpu():
     assert sum(label.startswith("resnet18") for label, _, _ in flat) == 5
     for _, k6, k2 in flat:
         assert len(k6) == len(k2)
-        for args, kw, out, err in k6:
+        for (args, kw, out, err), (args2, kw2) in zip(k6, k2):
             nb, ops = chip_smoke.work("conv_flat_int8", args, kw, out)
             assert err == 0 and out.shape[0] == args[0].shape[0] and nb > 0 and ops > 0
+            out2 = chip_smoke.KERNELS["conv_int8"]["plain"](*args2, **kw2)
+            ops2 = chip_smoke.work("conv_int8", args2, kw2, out2)[1]
+            # a masked ring's rows need no taps: then K6 does K2's operations
+            assert ops == ops2 if kw["mask_pad"] else ops > ops2
