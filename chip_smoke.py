@@ -31,8 +31,13 @@ from the seed:
            against its plain version on every row and against K2
   timing   device time (torch.profiler) of each kernel call, of its plain
            version and, for K1 and K7, of torch._int_mm at the same shape (K7
-           also beside K1, K6 beside K2); per path, whole-forward images/s,
+           also beside K1, K6 beside K2); K2 per shape with its tile and
+           split (ops/conv.py:plan_conv); per path, whole-forward images/s,
            device-busy share and device-time breakdown at batch 8 and 64
+
+The engine hands K2 and K3 the weights it packed at construction
+(PackedConvWeight, pack_stem_weight); the plain versions compute from the
+same packed layouts.
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -358,6 +363,10 @@ def engine_phase(eng: IntEngine, x):
     (kernel logits, plain logits, launches, recorded calls, clamped and
     zero shares of every 8-bit operand, K5's internal ones included)."""
     ref = IntEngine(eng.model, eng.plan, eng.params, device=eng.device)
+    # the same packed weight objects, so that a recorded call names its layer
+    for attr in ("_packed", "_stem_w"):
+        if hasattr(eng, attr):
+            setattr(ref, attr, getattr(eng, attr))
     for name, attr in ENGINE_ATTRS.items():
         setattr(ref, attr, KERNELS[name]["plain"])
     rec, stats = Recorder(ref), RequantStats(ref)
@@ -386,13 +395,25 @@ def check_logits(logits, logits_ref, batch, num_classes):
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    """Bytes of the tensors; a packed K2 weight counts its HWIO bytes (the
+    function's input, not the kernel's padded layout)."""
+    return sum(
+        math.prod(t.shape) if isinstance(t, conv_ops.PackedConvWeight)
+        else t.numel() * t.element_size() for t in ts
+    )
+
+
+STEM_WEIGHTS = 7 * 7 * 3 * 64  # the stem's HWIO weights, packed or not
 
 
 def work(name, args, kw, out):
     """(bytes, operations) the call must move and do: each input read once,
     the output written once; 2 operations per int8 x int8 multiply-add."""
     x, w = args[0], args[1]
+    if name == "stem_pool":  # weights HWIO or packed: the function's bytes
+        oh, ow, _, _ = stem_ops.stem_out_hw(x.shape[1], x.shape[2])
+        nb = nbytes(x, *args[2:], out) + STEM_WEIGHTS
+        return nb, 2 * x.shape[0] * oh * ow * STEM_WEIGHTS
     if name in ("int8_gemm", "int8_gemm_v2"):
         macs = x.shape[0] * w.shape[0] * w.shape[1]
     elif name == "conv_flat_int8":  # every row of the raster; a masked ring needs no taps
@@ -408,8 +429,7 @@ def work(name, args, kw, out):
         w1, wd, w2 = args[1], args[3], args[5]
         macs = out.numel() // w2.shape[1] * (w1.numel() + wd.numel() + w2.numel())
     else:
-        oh, ow, _, _ = stem_ops.stem_out_hw(x.shape[1], x.shape[2])
-        macs = x.shape[0] * oh * ow * w.numel()
+        raise ValueError(f"no work model for {name}")
     return nbytes(*(a for a in args if a is not None), out), 2 * macs
 
 
@@ -437,7 +457,7 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 
 def profile(run, complete=lambda ka: sum(e.self_device_time_total for e in ka) > 0,
-            tries: int = 3):
+            tries: int = 6):
     """key_averages of one torch.profiler session (device activity) around
     `run()`, after one warm-up run.  A session whose key_averages are not
     `complete` (by default: it recorded no device time) is made again, up
@@ -648,8 +668,16 @@ def time_forward(path: str, eng: IntEngine, images, card: str) -> None:
 
 def layers_by_weight(eng: IntEngine):
     """{id of a layer's weight tensor: layer name}: a recorded call carries
-    the engine's own weight tensors, which name the layer it computes."""
-    return {id(p["w"]): name for name, p in eng.params.items()}
+    the engine's own weight tensors (K2's packed ones), which name the layer
+    it computes."""
+    ids = {id(p["w"]): name for name, p in eng.params.items()}
+    ids.update({id(w): name for name, w in eng._packed.items()})
+    return ids
+
+
+def hwio(w):
+    """A K2 call's weights as HWIO, as K6 takes them."""
+    return conv_ops.unpack_conv_weight(w) if isinstance(w, conv_ops.PackedConvWeight) else w
 
 
 def k7_against_k1(checked) -> int:
@@ -695,33 +723,36 @@ def flat_phase(paths):
     for name, cargs, kw, out, _ in checked:
         if name != "conv_int8" or kw["stride"] != 1 or cargs[1].shape[0] != 3:
             continue
-        x, w, b = cargs
+        x, wp, b = cargs
+        w = hwio(wp)
         xf, geom = flat_ops.pack_flat(x, 1, kw["pad_value"])
         fkw = flat_kwargs(kw, geom, mask_pad=False, mask_value=0)
         y, err = compare("conv_flat_int8", (xf, w, b), fkw)
         if not torch.equal(flat_ops.unpack_flat(y, geom, 1), out):
-            raise AssertionError(f"conv_flat_int8 at {names[id(w)]}: differs from conv_int8")
-        groups.append((f"resnet50 {names[id(w)]}", [((xf, w, b), fkw, y, err)], [(cargs, kw)]))
+            raise AssertionError(f"conv_flat_int8 at {names[id(wp)]}: differs from conv_int8")
+        groups.append((f"resnet50 {names[id(wp)]}", [((xf, w, b), fkw, y, err)], [(cargs, kw)]))
     eng, _, checked = paths["resnet18"]
     names = layers_by_weight(eng)
     calls = {names[id(c[1][1])]: c for c in checked if c[0] == "conv_int8"}
     for meta in eng.model.blocks:
         if meta.shortcut is not None:
             continue
-        _, (x0, w0, b0), kw0, out0, _ = calls[meta.body[0]]
+        _, args0, kw0, out0, _ = calls[meta.body[0]]
         _, args1, kw1, out1, _ = calls[meta.body[1]]
+        (x0, wp0, b0), (_, wp1, b1) = args0, args1
+        w0, w1 = hwio(wp0), hwio(wp1)
         xf, geom = flat_ops.pack_flat(x0, 1, kw0["pad_value"])
         k0 = flat_kwargs(kw0, geom, mask_pad=True, mask_value=kw1["pad_value"])
         y0, e0 = compare("conv_flat_int8", (xf, w0, b0), k0)
         k1 = flat_kwargs(kw1, geom, mask_pad=True, mask_value=0)
-        y1, e1 = compare("conv_flat_int8", (y0,) + args1[1:], k1)
+        y1, e1 = compare("conv_flat_int8", (y0, w1, b1), k1)
         if not (torch.equal(flat_ops.unpack_flat(y0, geom, 1), out0)
                 and torch.equal(flat_ops.unpack_flat(y1, geom, 1), out1)):
             raise AssertionError(f"conv_flat_int8 chain of {meta.body}: differs from conv_int8's")
         groups.append((
             f"resnet18 {meta.body[0]} -> {meta.body[1]}",
-            [((xf, w0, b0), k0, y0, e0), ((y0,) + args1[1:], k1, y1, e1)],
-            [((x0, w0, b0), kw0), (args1, kw1)],
+            [((xf, w0, b0), k0, y0, e0), ((y0, w1, b1), k1, y1, e1)],
+            [(args0, kw0), (args1, kw1)],
         ))
     return groups
 
@@ -734,7 +765,8 @@ def new_row(name):
 
 def time_into(row, path, launches, name, cargs, kw, out, err):
     """Time one kernel call (time_call), log it, and add it to the kernel's
-    row and to the row's entry for `path`.  Returns the kernel's ms."""
+    row and to the row's entry for `path`.  Returns (the kernel's ms, its
+    bound ms)."""
     ms, call_ms, plain_ms, nb, ops = time_call(name, cargs, kw, out, reps=10)
     tb, to = bound_s(nb, ops)
     log(f"{path} time {name} {describe(cargs, kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
@@ -752,7 +784,31 @@ def time_into(row, path, launches, name, cargs, kw, out, err):
     ))
     by["ms"] += ms
     by["bound_ms"] += 1e3 * max(tb, to)
-    return ms
+    return ms, 1e3 * max(tb, to)
+
+
+def k2_plan_of(cargs, kw, out):
+    """(M, K, N, kernel, stride, K2's plan) of a recorded K2 call."""
+    kh, kwd, c, o = cargs[1].shape
+    m = out.shape[0] * out.shape[1] * out.shape[2]
+    sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+    return m, kh * kwd * c, o, kh, kw["stride"], conv_ops.plan_conv(m, kh * kwd * c, o, sms)
+
+
+def log_k2_table(rows, card: str) -> None:
+    """Per-shape table of K2's calls: shape, plan, device ms beside the bound."""
+    log(f"K2 per shape, batch {BATCH}, {IMAGE_SIZE} px ({card}): path | M | K | N | kernel/stride "
+        f"| tile | split | blocks | calls | ms per call | bound ms | x bound")
+    shapes = {}
+    for path, cargs, kw, out, ms, bound in rows:
+        m, k, n, kh, st, plan = k2_plan_of(cargs, kw, out)
+        key = (path, m, k, n, kh, st, plan)
+        tot = shapes.setdefault(key, [0, 0.0, bound])
+        tot[0] += 1
+        tot[1] += ms
+    for (path, m, k, n, kh, st, plan), (calls, ms, bound) in shapes.items():
+        log(f"  K2 | {path} | {m} | {k} | {n} | {kh}x{kh}/s{st} | {conv_ops.BM}x{plan.bn} | {plan.splits} | "
+            f"{plan.blocks} | {calls} | {ms / calls:.4f} | {bound:.5f} | {ms / calls / bound:.1f}")
 
 
 def add_to(row, path, key, ms):
@@ -814,9 +870,12 @@ def main(argv=None) -> int:
     # calls, a GEMM's library time sums torch._int_mm at the same calls, and
     # K7's row also sums K1's time at its calls
     table = {n: new_row(n) for n in KERNELS}
+    k2_rows = []
     for path, (eng, counts, checked) in paths.items():
         for name, cargs, kw, out, err in checked:
-            time_into(table[name], path, counts[name], name, cargs, kw, out, err)
+            ms, bound = time_into(table[name], path, counts[name], name, cargs, kw, out, err)
+            if name == "conv_int8":
+                k2_rows.append((path, cargs, kw, out, ms, bound))
             if name in ("int8_gemm", "int8_gemm_v2"):
                 (M, K), N = cargs[0].shape, cargs[1].shape[1]
                 lib_ms, lib_m = int_mm_ms(M, K, N, device)
@@ -830,7 +889,7 @@ def main(argv=None) -> int:
     row = table["conv_flat_int8"]
     for label, k6_calls, k2_calls in flat:
         path = label.split()[0]
-        k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c) for c in k6_calls)
+        k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c)[0] for c in k6_calls)
         k2 = sum(device_ms(lambda: conv_ops.conv_int8(*a, **kw))[0] for a, kw in k2_calls)
         log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms at the same call(s)")
         add_to(row, path, "k2_ms", k2)
@@ -838,6 +897,8 @@ def main(argv=None) -> int:
     tb, to = bound_s(nb, ops)
     log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {ops} ops")
+
+    log_k2_table(k2_rows, card)
 
     for path, (eng, _, _) in paths.items():
         time_forward(path, eng, images, card)

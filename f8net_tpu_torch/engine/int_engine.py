@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.pool import avgpool_shift_for
-from ..nn.spec import LinearSpec
+from ..nn.spec import ConvBNSpec, LinearSpec
 from ..ops import conv as _conv
 from ..ops import dw as _dw
 from ..ops import gemm as _gemm
@@ -147,13 +147,23 @@ class IntEngine:
             name for m in model.blocks if is_bottleneck(self.graph, m)
             for name in (*m.body, m.shortcut) if name and is_pointwise(self.graph[name])
         }
+        # weights in the kernels' own layouts, packed once: every K2 layer's
+        # (K-major 16-byte chunks) and, for ResNets, the stem's (K3)
+        self._packed = {
+            name: _conv.pack_conv_weight(self.params[name]["w"])
+            for name in self.graph.names()
+            if isinstance(self.graph[name], ConvBNSpec) and name != "head"
+            and not is_pointwise(self.graph[name]) and not self.graph[name].is_depthwise
+        }
         if model.name == "mobilenet_v2":
             w = self.params["head"]["w"]
             cpad = -w.shape[2] % 16
-            self._head_w = F.pad(w, (0, 0, 0, cpad)).contiguous()
+            self._packed["head"] = _conv.pack_conv_weight(F.pad(w, (0, 0, 0, cpad)))
             self._fused = {
                 m.body[0]: self._ir_operands(m) for m in model.blocks if fuses_ir(self.graph, m)
             }
+        else:
+            self._stem_w = _stem.pack_stem_weight(self.params["head"]["w"])
 
     # -- input -------------------------------------------------------------
 
@@ -223,15 +233,16 @@ class IntEngine:
         """Wire input -> pooled int32 stem activation through K3
         (`int_engine.py:1290-1337`)."""
         b, pad = self._bias_pad("head")
-        pooled = self._stemk(self._wire_operand(x), self.params["head"]["w"], b, pad_value=pad)
+        pooled = self._stemk(self._wire_operand(x), self._stem_w, b, pad_value=pad)
         return IAct(pooled, self.plan["head"].out_fl)
 
     def head_conv(self, x: torch.Tensor, pack_output_for: Optional[str]) -> IAct:
         """Wire input -> MobileNetV2 head through K2 with its input channels
         padded to the padded weights' (`int_engine.py:1373-1377`)."""
         v8 = self._wire_operand(x)
-        v8 = F.pad(v8, (0, self._head_w.shape[2] - v8.shape[3]))
-        return self._product("head", v8, self._head_w, pack_output_for)
+        w = self._packed["head"]
+        v8 = F.pad(v8, (0, w.c - v8.shape[3]))
+        return self._product("head", v8, w, pack_output_for)
 
     def conv_int(
         self, name: str, act: IAct, pack_output_for: Optional[str] = None, relu: bool = False
@@ -239,12 +250,14 @@ class IntEngine:
         """int8 conv; requant8 epilogue packed for a unique consumer conv,
         int32 otherwise (`int_engine.py:549-803`)."""
         act = self.pack_for(act, name)
-        return self._product(name, act.x, self.params[name]["w"], pack_output_for, relu)
+        w = self._packed.get(name, self.params[name]["w"])
+        return self._product(name, act.x, w, pack_output_for, relu)
 
     def _product(self, name, x8, w, pack_output_for, relu=False) -> IAct:
         """Layer `name` on its packed operand `x8`, routed by the layer's
         structure: depthwise -> K4, 1x1/s1 -> K7 in a Bottleneck block and
-        K1 elsewhere, as GEMMs over N*H*W rows, any other conv -> K2."""
+        K1 elsewhere, as GEMMs over N*H*W rows, any other conv -> K2 (with
+        its weights packed at construction)."""
         pl = self.plan[name]
         spec = self.graph[name]
         b, pad = self._bias_pad(name)

@@ -11,8 +11,15 @@ The border is filled with `pad_value`, the packed zero (-128 for the
 unsigned head, 0 for the signed one), so the bias `b + zp * colsum(w)` --
 the engine's `b_zp` -- compensates every tap alike.
 
+The kernel computes the conv as an int8 GEMM on tensor cores over a
+reduction of 7 kernel rows x 8 pixels x 4 bytes (3 channels and a pad
+byte); `pack_stem_weight` lays the (7, 7, 3, 64) HWIO weights out in that
+order once, with zeros at every pad byte, and `IntEngine` passes them
+packed.
+
 `stem_pool` launches the kernel for CUDA tensors and raises on what it does
-not take; for CPU tensors it runs `stem_pool_plain`.
+not take; for CPU tensors it runs `stem_pool_plain`, which computes from the
+packed layout when given packed weights.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 from . import _build
 from .fxp import wrap_i32
 
+STEM_K = 7 * 8 * 4  # packed reduction: 7 ky x 8 pixels x 4 bytes
+
 
 def stem_out_hw(h: int, w: int):
     """(conv h, conv w, pooled h, pooled w) of the 7x7/s2/p3 conv and the
@@ -33,13 +42,46 @@ def stem_out_hw(h: int, w: int):
     return oh, ow, (oh - 1) // 2 + 1, (ow - 1) // 2 + 1
 
 
+def pack_stem_weight(w: torch.Tensor) -> torch.Tensor:
+    """(7, 7, 3, 64) HWIO int8 -> (64, STEM_K) K-major int8, on w's device:
+    packed[o, 32 ky + 4 kx + c] = w[ky, kx, c, o] for kx < 7 and c < 3, 0
+    at the pad bytes (kx = 7, c = 3)."""
+    p = torch.zeros((64, 7, 8, 4), dtype=torch.int8, device=w.device)
+    p[:, :, :7, :3] = w.permute(3, 0, 1, 2)
+    return p.reshape(64, STEM_K)
+
+
+def _stem_acc_packed(x: torch.Tensor, wp: torch.Tensor, pad_value: int) -> torch.Tensor:
+    """The stem conv from the packed layout, plain: for every conv position
+    the 7 input rows of 8 pixels at 4 bytes each (3 channels, then a pad
+    byte of 0; pixels past the padded input are 0 too) in the kernel's
+    reduction order, times the packed weights.  NCHW float64 accumulators,
+    exact (|acc| < 2^53)."""
+    n, h, w, _ = x.shape
+    oh, ow, _, _ = stem_out_hw(h, w)
+    xp = F.pad(x.to(torch.float64), (0, 1, 3, 3, 3, 3), value=float(pad_value))
+    xp[..., 3] = 0
+    xp = F.pad(xp, (0, 0, 0, 2 * ow + 6 - xp.shape[2]))  # the 8th pixel of the last window
+    rows = [
+        xp[:, ky: ky + 2 * oh - 1: 2, kx: kx + 2 * ow - 1: 2]
+        for ky in range(7) for kx in range(8)
+    ]
+    a = torch.cat(rows, dim=3).reshape(n * oh * ow, STEM_K)
+    acc = torch.matmul(a, wp.to(torch.float64).t())
+    return acc.reshape(n, oh, ow, 64).permute(0, 3, 1, 2)
+
+
 def stem_pool_plain(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, pad_value: int = 0
 ) -> torch.Tensor:
-    """Plain PyTorch version of K3.  Conv and pool run in float64, exact
-    for these integers (|acc| <= 147 * 128 * 127)."""
-    xd = F.pad(x.permute(0, 3, 1, 2).to(torch.float64), (3, 3, 3, 3), value=float(pad_value))
-    y = F.conv2d(xd, w.permute(3, 2, 0, 1).to(torch.float64), stride=2)
+    """Plain PyTorch version of K3, from HWIO weights (a float64 conv2d) or
+    packed ones (_stem_acc_packed).  Conv and pool run in float64, exact for
+    these integers (|acc| <= 147 * 128 * 127)."""
+    if w.ndim == 2:
+        y = _stem_acc_packed(x, w, pad_value)
+    else:
+        xd = F.pad(x.permute(0, 3, 1, 2).to(torch.float64), (3, 3, 3, 3), value=float(pad_value))
+        y = F.conv2d(xd, w.permute(3, 2, 0, 1).to(torch.float64), stride=2)
     acc = wrap_i32(y.to(torch.int64) + bias.to(torch.int64).reshape(1, -1, 1, 1))
     acc = acc.clamp_min(0)
     pooled = F.max_pool2d(acc.to(torch.float64), 3, 2, 1)
@@ -53,7 +95,9 @@ def stem_pool(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, pad_value: int = 0
 ) -> torch.Tensor:
     """K3 on the tensors' device: the CUDA kernel on a card, the plain
-    version on the CPU."""
+    version on the CPU.  `w` is (7, 7, 3, 64) HWIO (packed here, on every
+    call) or (64, STEM_K) packed by pack_stem_weight (once, by the
+    caller)."""
     if x.device.type == "cpu":
         return stem_pool_plain(x, w, bias, pad_value=pad_value)
     req = _build.require
@@ -62,9 +106,13 @@ def stem_pool(
     req(x.dtype == torch.int8 and w.dtype == torch.int8, "stem_pool: x and w must be int8")
     req(bias.dtype == torch.int32 and bias.shape == (64,), "stem_pool: bias (64,) int32")
     req(x.ndim == 4 and x.shape[3] == 3, "stem_pool: x must be (n, h, w, 3)")
-    req(tuple(w.shape) == (7, 7, 3, 64), "stem_pool: w must be (7, 7, 3, 64)")
+    req(tuple(w.shape) in ((7, 7, 3, 64), (64, STEM_K)),
+        f"stem_pool: w must be (7, 7, 3, 64) HWIO or (64, {STEM_K}) packed")
+    if w.ndim == 4:
+        w = pack_stem_weight(w)
     req(-128 <= pad_value <= 127, "stem_pool: pad_value is an int8")
     req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "stem_pool: contiguity")
+    req(w.data_ptr() % 16 == 0, "stem_pool: alignment")
     n, h, wd, _ = x.shape
     oh, ow, ph, pw = stem_out_hw(h, wd)
     out = torch.empty((n, ph, pw, 64), dtype=torch.int32, device=x.device)
@@ -74,8 +122,8 @@ def stem_pool(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
             n, h, wd, oh, ow, ph, pw, pad_value, _build.stream_of(x),
         )
-        stem_pool.launches += 1
     _build.check(lib, rc, "stem_pool")
+    stem_pool.launches += 1
     return out
 
 

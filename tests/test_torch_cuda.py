@@ -9,8 +9,12 @@ suite's conftest (which configures JAX):
 Shapes cover the ragged edges the main path does not: M, N and C that are
 not multiples of the 64-wide tiles, a GEMM N (class count) not a multiple of
 4, GEMM K not a multiple of 16 (MobileNetV2's K = 24) or of 4, odd spatial
-sizes at stride 2, 5x5 kernels, depthwise channel counts that split unevenly
-across blocks, K5 blocks at 7x7 x 960 channels and at Cin = Cout = 24, K7 at
+sizes at stride 2, 5x5 kernels, K2 with packed and HWIO weights at shapes
+that split the reduction across a cluster (ResNet's stage 3), at
+ResNet-50's last 1x1/s2 shortcut and at
+MobileNetV2's C = 16 head, K3 on pooled maps that do not fill a tile and on
+more tiles than its persistent grid holds, depthwise channel counts that
+split unevenly across blocks, K5 blocks at 7x7 x 960 channels and at Cin = Cout = 24, K7 at
 K = 2048 (its largest weight slab on ResNet-50) with an M tail and at
 M = 25088, K6 on every row of 7x7 and 56x56 rasters with the ring masked and
 not, negative shifts, ReLU, and biases that make the int32 epilogue and the
@@ -23,6 +27,7 @@ import torch
 
 from f8net_tpu_torch.ops import conv_flat_int8, conv_int8, dw_int8, fused_ir_block, int8_gemm
 from f8net_tpu_torch.ops import int8_gemm_v2, pack_flat, stem_pool, unpack_flat
+from f8net_tpu_torch.ops import PackedConvWeight, pack_conv_weight, pack_stem_weight
 from f8net_tpu_torch.ops.conv import conv_int8_plain
 from f8net_tpu_torch.ops.conv_flat import conv_flat_int8_plain
 from f8net_tpu_torch.ops.dw import dw_int8_plain
@@ -138,6 +143,13 @@ CONV_SHAPES = [
     (2, 10, 10, 128, 132, 1, 2, 0, 0),
     (1, 5, 6, 80, 64, 3, 1, 1, 0),
     (1, 9, 9, 32, 12, 3, 1, 1, -128),
+    (2, 7, 7, 512, 512, 3, 1, 1, -128),  # stage 3: M = 98 in one tile row, split 8 ways
+    (2, 14, 14, 256, 256, 3, 1, 1, 0),  # 392 rows: 4 x 4 tiles, split 8 ways
+    (3, 14, 14, 256, 512, 3, 2, 1, -128),  # stride 2, 147 rows: 2 x 8 tiles, split 8 ways
+    (1, 15, 13, 64, 128, 3, 1, 1, 0),  # ragged M tail: 195 rows in two tiles of 128
+    (1, 224, 224, 16, 32, 3, 2, 1, -128),  # MobileNetV2's head: C = 16, 4 taps per step
+    (8, 14, 14, 1024, 2048, 1, 2, 0, 0),  # ResNet-50's last 1x1/s2 shortcut
+    (1, 10, 10, 128, 64, 3, 1, 0, 0),  # no padding
 ]
 
 
@@ -146,22 +158,48 @@ CONV_SHAPES = [
 def test_conv_int8_kernel_vs_plain(dev, n, h, w, c, o, k, stride, padding, pad_value, wrap):
     rng = np.random.RandomState(h * w + c + o + k + wrap)
     x, wt, b = _int8(rng, (n, h, w, c)), _int8(rng, (k, k, c, o), -127), _bias(rng, o, wrap)
+    xd, wd, bd = x.to(dev), wt.to(dev), b.to(dev)
+    wp = pack_conv_weight(wd)
     for kw in GEMM_EPILOGUES:
         kw = dict(kw, stride=stride, padding=padding, pad_value=pad_value)
-        got = conv_int8(x.to(dev), wt.to(dev), b.to(dev), **kw)
+        got = conv_int8(xd, wp, bd, **kw)  # weights packed once, as the engine passes them
+        got_hwio = conv_int8(xd, wd, bd, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), conv_int8_plain(x, wt, b, **kw)), kw
+        want = conv_int8_plain(x, wt, b, **kw)
+        assert torch.equal(got.cpu(), want), kw
+        assert torch.equal(got_hwio.cpu(), want), kw
 
 
-@pytest.mark.parametrize("n,h,w", [(1, 224, 224), (2, 32, 32), (2, 36, 44), (1, 33, 35)])
+@pytest.mark.parametrize(
+    "n,h,w",
+    # (2, 40, 52) and (3, 21, 100): pooled maps of 10 x 13 and 6 x 25, which
+    # leave 8 x 8 tiles part-filled on both axes
+    [(1, 224, 224), (2, 32, 32), (2, 36, 44), (1, 33, 35), (2, 40, 52), (3, 21, 100),
+     (3, 1, 2)],
+)
 @pytest.mark.parametrize("pad_value", [-128, 0])
 def test_stem_pool_kernel_vs_plain(dev, n, h, w, pad_value):
     rng = np.random.RandomState(h * w + (pad_value == 0))
     x, wt = _int8(rng, (n, h, w, 3)), _int8(rng, (7, 7, 3, 64), -127)
     b = torch.from_numpy(rng.randint(-(1 << 16), 1 << 16, 64).astype(np.int32))
-    got = stem_pool(x.to(dev), wt.to(dev), b.to(dev), pad_value=pad_value)
+    want = stem_pool_plain(x, wt, b, pad_value=pad_value)
+    for wk in (wt.to(dev), pack_stem_weight(wt.to(dev))):  # HWIO, and packed as by the engine
+        got = stem_pool(x.to(dev), wk, b.to(dev), pad_value=pad_value)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_stem_pool_kernel_persistent_grid(dev):
+    """More pooled tiles than resident blocks (batch 64 at 224 px: 3136
+    tiles), so every block walks several tiles with the next one's rows in
+    flight."""
+    rng = np.random.RandomState(5)
+    x, wt = _int8(rng, (64, 224, 224, 3)), _int8(rng, (7, 7, 3, 64), -127)
+    b = torch.from_numpy(rng.randint(-(1 << 16), 1 << 16, 64).astype(np.int32))
+    xd, wd, bd = x.to(dev), wt.to(dev), b.to(dev)
+    got = stem_pool(xd, pack_stem_weight(wd), bd, pad_value=-128)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), stem_pool_plain(x, wt, b, pad_value=pad_value))
+    assert torch.equal(got, stem_pool_plain(xd, wd, bd, pad_value=-128))
 
 
 # (n, h, w, c, k, stride, padding, pad_value)
@@ -252,6 +290,15 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         )
     with pytest.raises(ValueError, match="7, 7, 3, 64"):
         stem_pool(x, w, b)
+    with pytest.raises(ValueError, match="7, 7, 3, 64"):  # a packed stem weight of the wrong size
+        stem_pool(x, torch.zeros((64, 200), dtype=torch.int8, device=dev), b)
+    # packed K2 weights that do not fit the call: wrong layout, wrong C
+    w16 = pack_conv_weight(torch.zeros((3, 3, 16, 64), dtype=torch.int8, device=dev))
+    bad = PackedConvWeight(w16.data[:, :32].contiguous(), 3, 3, 16, 64)
+    with pytest.raises(ValueError, match="packed weight data"):
+        conv_int8(torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=dev), bad, b, padding=1)
+    with pytest.raises(ValueError, match="groups 1"):
+        conv_int8(torch.zeros((1, 8, 8, 32), dtype=torch.int8, device=dev), w16, b, padding=1)
     with pytest.raises(ValueError, match="K % 4"):
         int8_gemm(
             torch.zeros((4, 6), dtype=torch.int8, device=dev),
