@@ -17,14 +17,14 @@ from the seed:
   engine   per path, batch 8 through the kernels and through their plain
            PyTorch versions: logits bitwise equal, launches per forward as
            LAUNCHES_PER_FORWARD (ResNet-18: 19 K2 + 1 K3 + 1 K1; MobileNetV2:
-           1 K2 + 5 K4 + 11 K1 + 12 K5; ResNet-50: 1 K3 + 19 K2 + 33 K7 +
-           1 K1), non-degenerate logits, and every 8-bit operand (K5's
+           1 K2 + 5 K4 + 4 K1 + 7 K7 + 12 K5; ResNet-50: 1 K3 + 19 K2 + 33
+           K7 + 1 K1), non-degenerate logits, and every 8-bit operand (K5's
            internal ones included) clamped less than MAX_CLAMPED and zero
            less than MAX_ZERO of the time; logged: how far logits and block
            outputs are from the float network's
   kernels  every kernel call of those forwards (plus K1's requant8 epilogue at
            a 1x1-conv shape) against its plain version on the same inputs;
-           K1 on each of ResNet-50's K7 calls, equal to K7
+           K1 on each K7 call, equal to K7
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
@@ -32,10 +32,13 @@ from the seed:
   timing   device time (torch.profiler) of each kernel call, of its plain
            version and, for K1 and K7, of torch._int_mm at the same shape (K7
            also beside K1, K6 beside K2); K2 per shape with its tile and
-           split (ops/conv.py:plan_conv); per path, whole-forward images/s,
-           device-busy share and device-time breakdown at batch 8 and 64
+           split (ops/conv.py:plan_conv), K5 per call with its band height
+           and Ce split (ops/ir_block.py:plan_ir), K7 per shape with its
+           tile, split and grid (ops/gemm_v2.py:plan_gemm) beside K1 and
+           torch._int_mm; per path, whole-forward images/s, device-busy
+           share and device-time breakdown at batch 8 and 64
 
-The engine hands K2 and K3 the weights it packed at construction
+The engine hands K2, K3, K5 and K7 the weights it packed at construction
 (PackedConvWeight, pack_stem_weight); the plain versions compute from the
 same packed layouts.
 
@@ -115,8 +118,8 @@ KERNELS = {
         source="f8net_tpu_torch/csrc/ir_block.cu",
         replaces="f8net_tpu/ops/pallas_ir_block.py:317",
     ),
-    "int8_gemm_v2": dict(  # K1's contract: K1's plain version is K7's
-        fn=gemm_v2_ops.int8_gemm_v2, plain=gemm_ops.int8_gemm_plain,
+    "int8_gemm_v2": dict(  # K1's contract, on weights packed for K7
+        fn=gemm_v2_ops.int8_gemm_v2, plain=gemm_v2_ops.int8_gemm_v2_plain,
         source="f8net_tpu_torch/csrc/int8_gemm_v2.cu",
         replaces="f8net_tpu/ops/pallas_gemm_v2.py:174",
     ),
@@ -134,7 +137,8 @@ ENGINE_ATTRS = {
 # kernel launches per forward of each main path; kernels not named: 0
 LAUNCHES_PER_FORWARD = {
     "resnet18": {"conv_int8": 19, "stem_pool": 1, "int8_gemm": 1},
-    "mobilenet_v2": {"conv_int8": 1, "dw_int8": 5, "int8_gemm": 11, "ir_block": 12},
+    "mobilenet_v2": {"conv_int8": 1, "dw_int8": 5, "int8_gemm": 4, "int8_gemm_v2": 7,
+                     "ir_block": 12},
     "resnet50": {"stem_pool": 1, "conv_int8": 19, "int8_gemm_v2": 33, "int8_gemm": 1},
 }
 
@@ -395,8 +399,9 @@ def check_logits(logits, logits_ref, batch, num_classes):
 
 
 def nbytes(*ts) -> int:
-    """Bytes of the tensors; a packed K2 weight counts its HWIO bytes (the
-    function's input, not the kernel's padded layout)."""
+    """Bytes of the tensors; a packed weight (K2's, K5's, K7's) counts its
+    logical HWIO bytes (the function's input, not the kernel's padded
+    layout)."""
     return sum(
         math.prod(t.shape) if isinstance(t, conv_ops.PackedConvWeight)
         else t.numel() * t.element_size() for t in ts
@@ -408,14 +413,17 @@ STEM_WEIGHTS = 7 * 7 * 3 * 64  # the stem's HWIO weights, packed or not
 
 def work(name, args, kw, out):
     """(bytes, operations) the call must move and do: each input read once,
-    the output written once; 2 operations per int8 x int8 multiply-add."""
+    the output written once; 2 operations per int8 x int8 multiply-add.
+    Both count the function's logical shapes -- x's, the output's and the
+    weights' logical ones -- so a bound is the same whatever layout
+    (packed, padded) the kernel reads."""
     x, w = args[0], args[1]
     if name == "stem_pool":  # weights HWIO or packed: the function's bytes
         oh, ow, _, _ = stem_ops.stem_out_hw(x.shape[1], x.shape[2])
         nb = nbytes(x, *args[2:], out) + STEM_WEIGHTS
         return nb, 2 * x.shape[0] * oh * ow * STEM_WEIGHTS
-    if name in ("int8_gemm", "int8_gemm_v2"):
-        macs = x.shape[0] * w.shape[0] * w.shape[1]
+    if name in ("int8_gemm", "int8_gemm_v2"):  # (M, K) x (K, N), N from the output
+        macs = x.shape[0] * x.shape[1] * out.shape[1]
     elif name == "conv_flat_int8":  # every row of the raster; a masked ring needs no taps
         rows = x.shape[0]
         if kw["mask_pad"]:
@@ -425,9 +433,10 @@ def work(name, args, kw, out):
         macs = rows * w.numel()
     elif name in ("conv_int8", "dw_int8"):  # dw weights are (kh, kw, 1, C)
         macs = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
-    elif name == "ir_block":
-        w1, wd, w2 = args[1], args[3], args[5]
-        macs = out.numel() // w2.shape[1] * (w1.numel() + wd.numel() + w2.numel())
+    elif name == "ir_block":  # per pixel: cin x ce expand, k x k x ce depthwise, ce x cout project
+        kh, kwd, ce = args[3].shape
+        cin, cout = x.shape[3], out.shape[3]
+        macs = out.numel() // cout * (cin * ce + kh * kwd * ce + ce * cout)
     else:
         raise ValueError(f"no work model for {name}")
     return nbytes(*(a for a in args if a is not None), out), 2 * macs
@@ -680,6 +689,13 @@ def hwio(w):
     return conv_ops.unpack_conv_weight(w) if isinstance(w, conv_ops.PackedConvWeight) else w
 
 
+def k1_args(cargs):
+    """A recorded K7 call's inputs as K1 takes them: its packed weights as
+    the (K, N) matrix."""
+    x, w, b = cargs
+    return x, gemm_v2_ops.unpack_gemm_weight(w), b
+
+
 def k7_against_k1(checked) -> int:
     """K1 on each recorded K7 call's inputs: the two kernels share one
     contract, so their outputs must be equal bit for bit.  Returns the
@@ -688,7 +704,7 @@ def k7_against_k1(checked) -> int:
     for name, cargs, kw, out, _ in checked:
         if name != "int8_gemm_v2":
             continue
-        k1 = gemm_ops.int8_gemm(*cargs, **kw)
+        k1 = gemm_ops.int8_gemm(*k1_args(cargs), **kw)
         if not torch.equal(k1, out):
             raise AssertionError(f"int8_gemm_v2 {describe(cargs, kw)}: differs from int8_gemm")
         n += 1
@@ -811,6 +827,44 @@ def log_k2_table(rows, card: str) -> None:
             f"{plan.blocks} | {calls} | {ms / calls:.4f} | {bound:.5f} | {ms / calls / bound:.1f}")
 
 
+def log_k5_table(rows, card: str) -> None:
+    """K5's calls one by one: shape, plan (ops/ir_block.py:plan_ir), device
+    ms beside the bound.  Both products run on wgmma at every shape."""
+    log(f"K5 per call, batch {BATCH}, {IMAGE_SIZE} px ({card}): h x w | cin | ce | cout | carry "
+        f"| out | band rows | bands | Ce splits x channels | blocks | ms | bound ms | x bound")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for cargs, kw, out, ms, bound in rows:
+        n, h, w, cin = cargs[0].shape
+        kh, _, ce = cargs[3].shape
+        cout = out.shape[3]
+        plan = ir_ops.plan_ir(n, h, w, cin, ce, cout, kh, sms)
+        carry = len(cargs) > 7 and cargs[7] is not None
+        log(f"  K5 | {h}x{w} | {cin} | {ce} | {cout} | {'yes' if carry else 'no'} | {kw['out']} "
+            f"| {plan.th} | {plan.bands} | {plan.splits} x {plan.cs} | {n * plan.bands * plan.splits} "
+            f"| {ms:.4f} | {bound:.5f} | {ms / bound:.1f}")
+
+
+def log_k7_table(rows, card: str) -> None:
+    """K7 per (M, K, N, epilogue), beside K1 and torch._int_mm at the same
+    calls, with its plan (ops/gemm_v2.py:plan_gemm)."""
+    log(f"K7 per shape, batch {BATCH}, {IMAGE_SIZE} px ({card}): path | M | K | N | epilogue | "
+        f"calls | tile | split | blocks | K7 ms | K1 ms | _int_mm ms | bound ms | x bound")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = {}
+    for path, cargs, kw, out, ms, bound, k1_ms, lib_ms in rows:
+        (m, k), n = cargs[0].shape, out.shape[1]
+        tot = shapes.setdefault((path, m, k, n, kw["epilogue"]), [0, 0.0, 0.0, 0.0, bound])
+        tot[0] += 1
+        tot[1] += ms
+        tot[2] += k1_ms
+        tot[3] += lib_ms
+    for (path, m, k, n, epi), (calls, ms, k1, lib, bound) in shapes.items():
+        plan = gemm_v2_ops.plan_gemm(m, k, n, sms)
+        log(f"  K7 | {path} | {m} | {k} | {n} | {epi} | {calls} | {gemm_v2_ops.BM}x{plan.bn} | {plan.splits} "
+            f"| {plan.grid} | {ms / calls:.4f} | {k1 / calls:.4f} | {lib / calls:.4f} "
+            f"| {bound:.5f} | {ms / calls / bound:.1f}")
+
+
 def add_to(row, path, key, ms):
     """Add a yardstick's ms to a kernel's row and to its entry for `path`."""
     row[key] = row.get(key, 0.0) + ms
@@ -845,8 +899,11 @@ def main(argv=None) -> int:
     ).to(device)
     paths = {path: check_path(path, args.seed, images, device) for path in LAUNCHES_PER_FORWARD}
 
-    n = k7_against_k1(paths["resnet50"][2])
-    log(f"resnet50: all {n} int8_gemm_v2 calls bitwise equal to int8_gemm on the same inputs")
+    for path, (_, counts, checked) in paths.items():
+        n = k7_against_k1(checked)
+        if n != counts["int8_gemm_v2"]:
+            raise AssertionError(f"{path}: {n} of {counts['int8_gemm_v2']} K7 calls held to K1")
+        log(f"{path}: all {n} int8_gemm_v2 calls bitwise equal to int8_gemm on the same inputs")
     flat = flat_phase(paths)
     for label, k6_calls, _ in flat:
         log(f"kernel conv_flat_int8 {label}: {len(k6_calls)} call(s) equal to its plain version "
@@ -870,22 +927,26 @@ def main(argv=None) -> int:
     # calls, a GEMM's library time sums torch._int_mm at the same calls, and
     # K7's row also sums K1's time at its calls
     table = {n: new_row(n) for n in KERNELS}
-    k2_rows = []
+    k2_rows, k5_rows, k7_rows = [], [], []
     for path, (eng, counts, checked) in paths.items():
         for name, cargs, kw, out, err in checked:
             ms, bound = time_into(table[name], path, counts[name], name, cargs, kw, out, err)
             if name == "conv_int8":
                 k2_rows.append((path, cargs, kw, out, ms, bound))
             if name in ("int8_gemm", "int8_gemm_v2"):
-                (M, K), N = cargs[0].shape, cargs[1].shape[1]
+                (M, K), N = cargs[0].shape, out.shape[1]
                 lib_ms, lib_m = int_mm_ms(M, K, N, device)
                 log(f"{path} library {name}: torch._int_mm at M={lib_m} (call's M={M}), "
                     f"K={K}, N={N}: {lib_ms:.4f} ms")
                 add_to(table[name], path, "library_ms", lib_ms)
             if name == "int8_gemm_v2":
-                k1_ms = device_ms(lambda: gemm_ops.int8_gemm(*cargs, **kw))[0]
+                a1 = k1_args(cargs)
+                k1_ms = device_ms(lambda: gemm_ops.int8_gemm(*a1, **kw))[0]
                 log(f"{path} int8_gemm at the same call: {k1_ms:.4f} ms")
                 add_to(table[name], path, "k1_ms", k1_ms)
+                k7_rows.append((path, cargs, kw, out, ms, bound, k1_ms, lib_ms))
+            if name == "ir_block":
+                k5_rows.append((cargs, kw, out, ms, bound))
     row = table["conv_flat_int8"]
     for label, k6_calls, k2_calls in flat:
         path = label.split()[0]
@@ -899,6 +960,8 @@ def main(argv=None) -> int:
         f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {ops} ops")
 
     log_k2_table(k2_rows, card)
+    log_k5_table(k5_rows, card)
+    log_k7_table(k7_rows, card)
 
     for path, (eng, _, _) in paths.items():
         time_forward(path, eng, images, card)

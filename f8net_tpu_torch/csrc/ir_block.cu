@@ -16,163 +16,272 @@
 // shifts and adds in uint32 (int32 wraparound, as JAX's) and clips to
 // +-INT32_MAX.
 //
-// What bounds it on an H100: the two 1x1 products are tensor-core work and
-// the depthwise is CUDA-core work, and per-layer kernels would move the
-// expanded activation (6x the block's width) through device memory four
-// times.  Design: one block of 4 warps computes `th` output rows x the full
-// width of one image and recomputes the pad-row halo above and below.  The
-// block stages its input rows in shared memory (zero outside the image and
-// past cin, so Cin = 24 needs no padding in device memory), runs the expand
-// on mma.sync tiles (mma_tile.cuh) with w1 streamed through a 64 x 64 tile
-// from L2, keeps the expanded rows in shared memory as bytes, runs the
-// depthwise from there on the CUDA cores, keeps its output packed in shared
-// memory, and runs the project from there with w2 streamed the same way.
-// Only x, the weights, the carry and the output touch device memory.  `th`
-// is the largest row count that keeps at least one block per SM and the
-// block's shared memory under half an SM (two blocks per SM); at 7x7 x 960
-// channels one row fits.  No pipelining of the weight tiles yet.
+// What bounds it on an H100: the two 1x1 products are tensor-core work, the
+// depthwise CUDA-core work, and per-layer kernels would move the expanded
+// activation (6x the block's width) through device memory four times; fused,
+// only x, the weights, the carry and the output touch device memory, so at
+// MobileNetV2's shapes bytes bound it (0.0054 ms for the 12 calls at batch
+// 8).  What held the mma.sync version of this kernel at 266x that bound, and
+// what this design does about each:
+//   * serial weight stages (an L2 transpose of a 64 x 64 tile of w1 or w2,
+//     a barrier, one mma.sync tile, a barrier, 90 times a block at 7x7 x
+//     960): w1 and w2 are packed once on the host into wgmma's K-major
+//     16-byte-chunk image (ops/gemm_v2.py:pack_gemm_weight), and a block
+//     copies its whole slice of both with cp.async at its start, in two
+//     groups -- x and the w1 slice first, the w2 slice second, in flight
+//     under the expand and the depthwise;
+//   * one mma.sync tile at a time on 64-row tiles holding 7-21 rows: the
+//     products are wgmma m64nNk32 (N = 64, and 32 for a slice's or cout's
+//     32-channel tail, wgmma_s8.cuh) from shared memory, the two warpgroups
+//     of a block taking alternate (64-row, N-column) tiles, each running its
+//     whole reduction (up to 30 k32 steps) before one wait;
+//   * a grid of (ceil(h / th), n) blocks with th = 1 at 28x28 and below
+//     (56 blocks at 7x7, each expanding 3 rows to make 1): the planner
+//     (ops/ir_block.py:plan_ir) chooses a band height th and a split of the
+//     expanded channels Ce across the s blocks of a thread-block cluster.
+//     The depthwise is per channel, so a block needs only its own slice's
+//     expand columns and depthwise channels, and it computes a partial
+//     project over that slice of the reduction; the cluster sums the
+//     partials through distributed shared memory (integer adds, exact in any
+//     order) and each block runs the carry add and the epilogue once on its
+//     share of the band's pixels, as K2's split-K does.  At 7x7 a block holds
+//     a whole image (no halo) and an eighth of Ce: 64 blocks instead of 56
+//     blocks of a third of the work;
+//   * every block read all of w1 and w2 (307 KB at 7x7 x 960): a block reads
+//     its slice only;
+//   * the epilogue stores from the accumulator fragment: the partial project
+//     is staged in shared memory and the epilogue writes 16-byte int32 (4-byte
+//     int8) row-contiguous groups, reading the carry the same way.
+// The depthwise stays on the CUDA cores, from shared memory: one thread per
+// (pixel, 4-channel group), its k*k taps read from the expanded rows with
+// their zero border.  The layout of shared memory and the plan come from the
+// wrapper (IrParams, in the order of ops/ir_block.py:_PARAMS).
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
 #include "launch.cuh"
 #include "mma_tile.cuh"
+#include "requant.cuh"
+#include "wgmma_s8.cuh"
 
 namespace f8 {
 
-// the most each of two blocks can have on one SM: 228 KB per SM, less 1 KB
-// the hardware reserves per block
-constexpr int kHalfSmSmem = 233472 / 2 - 1024;
+constexpr int kIrThreads = 256;  // two warpgroups
 constexpr int32_t kInt32Max = 2147483647;
 
+// The plan and shared-memory layout, as ops/ir_block.py computes them (all
+// offsets in bytes from the start of dynamic shared memory).
 struct IrParams {
-  int n, h, w, cin, ce, cout, k, pad, th;
-  int net1, dw_in_signed, net2, proj_in_signed;
-  int epilogue, net_out, out_signed;
-  int has_carry, shift_res, shift_carry;
+  int n, h, w, cin, ce, cout, k, pad;
+  int th, cs, splits, cin_k, ce_pad, cout32, cout_pad, xvec;
+  int net1, dw_in_signed, net2, proj_in_signed, epilogue, net_out, out_signed;
+  int shift_res, shift_carry, ld_x, ld_d, ld_p;
+  int o_w2, o_d, o_wd, o_bd, o_b1, o_b2, o_c, o_x, o_w1, o_e, o_p, total;
+  int has_carry;  // set by the C entry
 };
-
-// Byte offsets of the shared-memory regions and the row strides of the two
-// GEMM A operands (a reduction rounded up to 64, plus 16 for the banks).
-struct IrLayout {
-  int ldx, ldd;
-  int x, e, d, wd, bd, total;
-};
-
-inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-inline IrLayout ir_layout(const IrParams& p, int th) {
-  IrLayout l;
-  const int er = th + 2 * p.pad, ewp = p.w + 2 * p.pad;
-  l.ldx = round_up(p.cin, kBK) + 16;
-  l.ldd = round_up(p.ce, kBK) + 16;
-  l.x = kBN * kLDS;                                  // B stage tile at 0
-  l.e = l.x + round_up(er * p.w, kBM) * l.ldx;       // input rows
-  l.d = l.e + round_up(er * ewp * p.ce, 16);         // expanded rows
-  l.wd = l.d + round_up(th * p.w, kBM) * l.ldd;      // depthwise output
-  l.bd = l.wd + round_up(p.k * p.k * p.ce, 16);      // depthwise weights
-  l.total = l.bd + p.ce * static_cast<int>(sizeof(int32_t));
-  return l;
-}
-
-inline int pick_rows(const IrParams& p, int sms) {
-  int th = 1;
-  for (int t = 2; t <= p.h; ++t) {
-    if (ir_layout(p, t).total > kHalfSmSmem) break;
-    if (static_cast<long long>(p.n) * ((p.h + t - 1) / t) < sms) break;
-    th = t;
-  }
-  return th;
-}
 
 __device__ __forceinline__ int32_t shl_wrap(int32_t v, int s) {
   return static_cast<int32_t>(static_cast<uint32_t>(v) << s);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ir_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w1,
+// asynchronous copy of 4 or 8 bytes global -> shared (cp.async.ca), zeros
+// when !valid
+template <int kBytes>
+__device__ __forceinline__ void cp_async_small(int8_t* dst, const int8_t* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(kBytes), "r"(valid ? kBytes : 0));
+}
+
+// One warpgroup's product of a 64-row tile of A (chunked K-major, lda_rows
+// rows per chunk, from `a`) and an N-column tile of B (chunked K-major,
+// ldb_rows rows per chunk, from `b`) over ksteps k32 steps, then f(row,
+// col, v0, v1) for the pairs of adjacent columns each thread holds (row and
+// col relative to the tile).
+template <int N, class F>
+__device__ __forceinline__ void wg_product(const int8_t* a, int lda_rows, const int8_t* b,
+                                           int ldb_rows, int ksteps, F&& f) {
+  int32_t acc[N / 2];
+  wgmma_fence();
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const uint64_t da = smem_desc(a + ks * 2 * lda_rows * 16, lda_rows * 16, 128);
+    const uint64_t db = smem_desc(b + ks * 2 * ldb_rows * 16, ldb_rows * 16, 128);
+    wgmma_s8<N>(acc, da, db, ks > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  const int lane = threadIdx.x & 31;
+  const int row = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      f(row + 8 * hh, 8 * j + col, acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+}
+
+// K: the depthwise kernel size when known at compile time (3: MobileNetV2's),
+// else 0
+template <int K>
+__global__ void __launch_bounds__(kIrThreads, 2)
+    ir_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w1p,
                     const int32_t* __restrict__ b1, const int8_t* __restrict__ wd,
-                    const int32_t* __restrict__ bd, const int8_t* __restrict__ w2,
+                    const int32_t* __restrict__ bd, const int8_t* __restrict__ w2p,
                     const int32_t* __restrict__ b2, const int32_t* __restrict__ carry,
-                    void* __restrict__ out, IrParams p, IrLayout l) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* sb = smem;
-  int8_t* sx = smem + l.x;
-  uint8_t* se = reinterpret_cast<uint8_t*>(smem + l.e);
-  int8_t* sd = smem + l.d;
-  const int8_t* swd = smem + l.wd;
-  int32_t* sbd = reinterpret_cast<int32_t*>(smem + l.bd);
+                    void* __restrict__ out, IrParams p) {
+  extern __shared__ __align__(128) int8_t smem[];
+  int8_t* sw2 = smem + p.o_w2;
+  int8_t* sd = smem + p.o_d;
+  int8_t* swd = smem + p.o_wd;
+  int32_t* sbd = reinterpret_cast<int32_t*>(smem + p.o_bd);
+  int32_t* sb1 = reinterpret_cast<int32_t*>(smem + p.o_b1);
+  int32_t* sb2 = reinterpret_cast<int32_t*>(smem + p.o_b2);
+  int32_t* sc = reinterpret_cast<int32_t*>(smem + p.o_c);  // this block's carry rows
+  int8_t* sx = smem + p.o_x;
+  int8_t* sw1 = smem + p.o_w1;
+  uint8_t* se = reinterpret_cast<uint8_t*>(smem + p.o_e);
+  int8_t* sp = smem + p.o_p;  // the partial project; overlays sx, sw1 and se
 
-  const int img = blockIdx.y, r0 = blockIdx.x * p.th;
-  const int rows = min(p.th, p.h - r0);  // output rows of this block
-  const int er = p.th + 2 * p.pad;       // expanded rows held, halo included
-  const int ewp = p.w + 2 * p.pad;       // expanded row width, zero border included
-  const int me = er * p.w;               // expand GEMM rows
-  const int mp = rows * p.w;             // project GEMM rows
-  const int cw = p.ce / 4;               // 4-byte words per expanded pixel
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int q = blockIdx.x, img = blockIdx.z;
+  const int r0 = blockIdx.y * p.th, rows = min(p.th, p.h - r0);  // output rows of the band
+  const int e_lo = max(r0 - p.pad, 0), e_hi = min(r0 + rows + p.pad, p.h);
+  const int me = (e_hi - e_lo) * p.w;  // expand rows: the band's in-image rows, halo included
+  const int mp = rows * p.w;           // project rows
+  const int ewp = p.w + 2 * p.pad;     // expanded row width, zero border included
+  const int c0 = q * p.cs, cw = min(p.cs, (p.ce + 31) / 32 * 32 - c0);  // the channel slice
+  const int rlo = q * mp / p.splits, rhi = (q + 1) * mp / p.splits;  // pixels this block finishes
+  const size_t pix0 = (static_cast<size_t>(img) * p.h + r0) * p.w;
 
-  // stage the input rows (0 outside the image and past cin), the zero
-  // border columns of the expanded rows, and the depthwise weights and bias
-  const int8_t* ximg = x + static_cast<size_t>(img) * p.h * p.w * p.cin;
-  const int xw = (l.ldx - 16) / 4;
-  for (int i = tid; i < me * xw; i += kThreads) {
-    const int r = i / xw, k4 = i - r * xw;
-    const int y = r0 - p.pad + r / p.w, col = r % p.w;
-    uint32_t v = 0u;
-    if (y >= 0 && y < p.h && k4 * 4 < p.cin)
-      v = *reinterpret_cast<const uint32_t*>(
-          ximg + (static_cast<size_t>(y) * p.w + col) * p.cin + k4 * 4);
-    *reinterpret_cast<uint32_t*>(sx + r * l.ldx + k4 * 4) = v;
-  }
-  for (int i = tid; i < er * 2 * p.pad * cw; i += kThreads) {
-    const int q = i / cw, c4 = i - q * cw;
-    const int row = q / (2 * p.pad), b = q - row * 2 * p.pad;
-    const int col = b < p.pad ? b : p.w + b;
-    *reinterpret_cast<uint32_t*>(se + (row * ewp + col) * p.ce + c4 * 4) = 0u;
-  }
-  for (int i = tid; i < p.k * p.k * cw; i += kThreads)
-    reinterpret_cast<uint32_t*>(smem + l.wd)[i] = reinterpret_cast<const uint32_t*>(wd)[i];
-  for (int i = tid; i < p.ce; i += kThreads) sbd[i] = bd[i];
-  __syncthreads();
-
-  // expand: e = requant(x . w1 + b1) as grid values; rows outside the image 0
-  for (int m0 = 0; m0 < me; m0 += kBM)
-    for (int n0 = 0; n0 < p.ce; n0 += kBN) {
-      Acc acc = {};
-      for (int k0 = 0; k0 < p.cin; k0 += kBK) {
-        load_b_kn<true>(sb, w1 + static_cast<size_t>(k0) * p.ce, p.ce, min(kBK, p.cin - k0), n0);
-        __syncthreads();
-        tile_mma_ptr(sx + m0 * l.ldx + k0, l.ldx, sb, kLDS, acc);
-        __syncthreads();
-      }
-      for_each_acc(acc, [&](int row, int col, int32_t v) {
-        const int r = m0 + row, c = n0 + col;
-        if (r >= me || c >= p.ce) return;
-        const int e_row = r / p.w, x_col = r - e_row * p.w;
-        const int y = r0 - p.pad + e_row;
-        const int32_t q = y >= 0 && y < p.h
-                              ? requant_value(add_wrap(v, b1[c]), p.net1, p.dw_in_signed != 0)
-                              : 0;
-        se[(e_row * ewp + x_col + p.pad) * p.ce + c] = static_cast<uint8_t>(q);
-      });
+  // group 0: the band's input rows (chunked K-major) and the w1 slice
+  const int8_t* xb = x + (static_cast<size_t>(img) * p.h + e_lo) * p.w * p.cin;
+  const int xch = p.cin_k / 16;
+  if (p.xvec == 16) {
+    for (int i = tid; i < me * xch; i += kIrThreads) {
+      const int r = i / xch, j = i - r * xch;
+      const bool ok = 16 * j < p.cin;
+      cp_async16(sx + (j * p.ld_x + r) * 16, ok ? xb + static_cast<size_t>(r) * p.cin + 16 * j : x,
+                 ok);
     }
+  } else {  // cin % 16 != 0 (MobileNetV2's 24): 8- or 4-byte pieces, zero past cin
+    const int per = 16 / p.xvec;
+    for (int i = tid; i < me * xch * per; i += kIrThreads) {
+      const int r = i / (xch * per), rem = i - r * xch * per, j = rem / per;
+      const int b = j * 16 + (rem - j * per) * p.xvec;
+      const bool ok = b < p.cin;
+      int8_t* dst = sx + (j * p.ld_x + r) * 16 + (b - j * 16);
+      const int8_t* src = ok ? xb + static_cast<size_t>(r) * p.cin + b : x;
+      if (p.xvec == 8)
+        cp_async_small<8>(dst, src, ok);
+      else
+        cp_async_small<4>(dst, src, ok);
+    }
+  }
+  for (int i = tid; i < xch * cw; i += kIrThreads) {
+    const int j = i / cw, r = i - j * cw;
+    cp_async16(sw1 + (j * p.cs + r) * 16, w1p + (static_cast<size_t>(j) * p.ce_pad + c0 + r) * 16,
+               true);
+  }
+  cp_async_commit();
+  // group 1: the w2 slice, rows c0 .. c0 + cw of the project's reduction
+  for (int i = tid; i < (cw / 16) * p.cout32; i += kIrThreads) {
+    const int j = i / p.cout32, r = i - j * p.cout32;
+    cp_async16(sw2 + (j * p.cout32 + r) * 16,
+               w2p + (static_cast<size_t>(c0 / 16 + j) * p.cout_pad + r) * 16, true);
+  }
+  cp_async_commit();
+  // group 2: the carry of the pixels this block finishes, for the epilogue
+  if (p.has_carry) {
+    const int8_t* src = reinterpret_cast<const int8_t*>(carry + (pix0 + rlo) * p.cout);
+    for (int i = tid; i < (rhi - rlo) * p.cout / 4; i += kIrThreads)
+      cp_async16(reinterpret_cast<int8_t*>(sc) + 16 * i, src + 16 * i, true);
+  }
+  cp_async_commit();
+  // the slice's depthwise weights and biases, 0 past ce; the zero border
+  // columns of the expanded rows and their rows outside the image
+  const int cw4 = cw / 4, cs4 = p.cs / 4;
+  for (int i = tid; i < p.k * p.k * cw4; i += kIrThreads) {
+    const int tap = i / cw4, c = 4 * (i - tap * cw4);
+    reinterpret_cast<uint32_t*>(swd)[tap * cs4 + c / 4] =
+        c0 + c < p.ce ? *reinterpret_cast<const uint32_t*>(wd + tap * p.ce + c0 + c) : 0u;
+  }
+  for (int c = tid; c < cw; c += kIrThreads) {
+    sbd[c] = c0 + c < p.ce ? bd[c0 + c] : 0;
+    sb1[c] = c0 + c < p.ce ? b1[c0 + c] : 0;
+  }
+  for (int c = tid; c < p.cout; c += kIrThreads) sb2[c] = b2[c];
+  {
+    const int row_words = ewp * cs4, pad_words = p.pad * cs4;
+    for (int i = tid; i < (rows + 2 * p.pad) * row_words; i += kIrThreads) {
+      const int er = i / row_words, word = i - er * row_words, y = r0 - p.pad + er;
+      if (y < 0 || y >= p.h || word < pad_words || word >= row_words - pad_words)
+        reinterpret_cast<uint32_t*>(se)[i] = 0u;
+    }
+  }
+  cp_async_wait<2>();  // x and the w1 slice
+  fence_proxy_async();
   __syncthreads();
 
-  // depthwise on the unpacked values, + bd, requant packed for the project;
-  // the reduction tail of each row (ce up to a multiple of 64) is set to 0
-  const int dw4 = (l.ldd - 16) / 4;
+  // expand: e = requant(x . w1 + b1) onto the depthwise's grid, unpacked,
+  // into the expanded rows at (band row, column + pad)
+  const int e_off = e_lo - (r0 - p.pad);  // band row of the first expand row
+  const int nt64e = cw / 64, nte = nt64e + (cw % 64 ? 1 : 0), mte = (me + 63) / 64;
   const bool dw_signed = p.dw_in_signed != 0;
-  for (int i = tid; i < mp * dw4; i += kThreads) {
-    const int pix = i / dw4, c4 = i - pix * dw4;
-    uint32_t packed = 0u;
-    if (c4 < cw) {
-      const int orow = pix / p.w, col = pix - orow * p.w;
+  for (int it = wg; it < mte * nte; it += 2) {
+    const int mt = it / nte, nt = it - mt * nte;
+    const int8_t* a = sx + mt * 64 * 16;
+    const int8_t* b = sw1 + nt * 64 * 16;
+    auto put = [&](int row, int col, int32_t v0, int32_t v1) {
+      const int r = mt * 64 + row;
+      if (r >= me) return;
+      const int er = e_off + r / p.w, xc = r - (r / p.w) * p.w, c = nt * 64 + col;
+      const uint32_t e0 = static_cast<uint8_t>(requant_value(add_wrap(v0, sb1[c]), p.net1, dw_signed));
+      const uint32_t e1 =
+          static_cast<uint8_t>(requant_value(add_wrap(v1, sb1[c + 1]), p.net1, dw_signed));
+      *reinterpret_cast<uint16_t*>(se + (er * ewp + xc + p.pad) * p.cs + c) =
+          static_cast<uint16_t>(e0 | (e1 << 8));
+    };
+    if (nt < nt64e)
+      wg_product<64>(a, p.ld_x, b, p.cs, p.cin_k / 32, put);
+    else
+      wg_product<32>(a, p.ld_x, b, p.cs, p.cin_k / 32, put);
+  }
+  __syncthreads();
+
+  // depthwise on the unpacked values, + bd, requant packed for the project,
+  // into the project's A operand (chunked K-major, ld_d rows per chunk).
+  // Thread t keeps one 4-channel group, cb + t % ng, and its k*k weight
+  // words in registers, and walks pixels t / ng, t / ng + step, ...
+  const int kk = K > 0 ? K : p.k;
+  for (int cb = 0; cb < cw4; cb += kIrThreads) {
+    const int ng = min(cw4 - cb, kIrThreads), step = kIrThreads / ng;
+    if (tid >= step * ng) continue;
+    const int c = 4 * (cb + tid % ng);
+    uint32_t wr[K > 0 ? K * K : 1];
+    if constexpr (K > 0) {
+#pragma unroll
+      for (int t = 0; t < K * K; ++t) wr[t] = *reinterpret_cast<const uint32_t*>(swd + t * p.cs + c);
+    }
+    int32_t bdv[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) bdv[b] = sbd[c + b];
+    int pix = tid / ng;
+    int orow = pix / p.w, col = pix - orow * p.w;
+    const int dr = step / p.w, dc = step - dr * p.w;
+    int8_t* dst = sd + (c / 16) * p.ld_d * 16 + c % 16;
+    for (; pix < mp; pix += step) {
       int32_t acc[4] = {0, 0, 0, 0};
-      for (int ky = 0; ky < p.k; ++ky)
-        for (int kx = 0; kx < p.k; ++kx) {
-          const uint32_t e = *reinterpret_cast<const uint32_t*>(
-              se + ((orow + ky) * ewp + col + kx) * p.ce + c4 * 4);
-          const uint32_t wv =
-              *reinterpret_cast<const uint32_t*>(swd + (ky * p.k + kx) * p.ce + c4 * 4);
+      const uint8_t* e0 = se + (orow * ewp + col) * p.cs + c;
+#pragma unroll
+      for (int ky = 0; ky < kk; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < kk; ++kx) {
+          const uint32_t e = *reinterpret_cast<const uint32_t*>(e0 + (ky * ewp + kx) * p.cs);
+          uint32_t wv;
+          if constexpr (K > 0)
+            wv = wr[ky * K + kx];
+          else
+            wv = *reinterpret_cast<const uint32_t*>(swd + (ky * kk + kx) * p.cs + c);
 #pragma unroll
           for (int b = 0; b < 4; ++b) {
             const uint32_t eb = (e >> (8 * b)) & 0xFFu;
@@ -181,80 +290,151 @@ __global__ void __launch_bounds__(kThreads)
             acc[b] += ev * static_cast<int32_t>(static_cast<int8_t>(wv >> (8 * b)));
           }
         }
+      uint32_t packed = 0u;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int8_t q =
-            requant8(add_wrap(acc[b], sbd[c4 * 4 + b]), p.net2, p.proj_in_signed != 0);
-        packed |= static_cast<uint32_t>(static_cast<uint8_t>(q)) << (8 * b);
+        const int8_t v = requant8(add_wrap(acc[b], bdv[b]), p.net2, p.proj_in_signed != 0);
+        packed |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * b);
+      }
+      *reinterpret_cast<uint32_t*>(dst + pix * 16) = packed;
+      col += dc;
+      orow += dr;
+      if (col >= p.w) {
+        col -= p.w;
+        ++orow;
       }
     }
-    *reinterpret_cast<uint32_t*>(sd + pix * l.ldd + c4 * 4) = packed;
   }
+  fence_proxy_async();
+  cp_async_wait<1>();  // the w2 slice
+  fence_proxy_async();
   __syncthreads();
 
-  // project: y = d . w2 + b2 (+ aligned, clipped residual), int32 or requant8
-  const size_t pix0 = (static_cast<size_t>(img) * p.h + r0) * p.w;
-  for (int m0 = 0; m0 < mp; m0 += kBM)
-    for (int n0 = 0; n0 < p.cout; n0 += kBN) {
-      Acc acc = {};
-      for (int k0 = 0; k0 < p.ce; k0 += kBK) {
-        load_b_kn<true>(sb, w2 + static_cast<size_t>(k0) * p.cout, p.cout, min(kBK, p.ce - k0),
-                        n0);
-        __syncthreads();
-        tile_mma_ptr(sd + m0 * l.ldd + k0, l.ldd, sb, kLDS, acc);
-        __syncthreads();
+  // project: the partial y = d . w2 over this slice of Ce, raw, into the
+  // staging rows (row stride ld_p) that now overlay the expand's buffers
+  const int nt64p = p.cout32 / 64, ntp = nt64p + (p.cout32 % 64 ? 1 : 0), mtp = (mp + 63) / 64;
+  for (int it = wg; it < mtp * ntp; it += 2) {
+    const int mt = it / ntp, nt = it - mt * ntp;
+    const int8_t* a = sd + mt * 64 * 16;
+    const int8_t* b = sw2 + nt * 64 * 16;
+    auto put = [&](int row, int col, int32_t v0, int32_t v1) {
+      const int r = mt * 64 + row;
+      if (r < mp)
+        *reinterpret_cast<int2*>(sp + r * p.ld_p + (nt * 64 + col) * 4) = make_int2(v0, v1);
+    };
+    if (nt < nt64p)
+      wg_product<64>(a, p.ld_d, b, p.cout32, cw / 32, put);
+    else
+      wg_product<32>(a, p.ld_d, b, p.cout32, cw / 32, put);
+  }
+
+  // the slices' partials summed (one block: its own), + b2, the carry add,
+  // the output epilogue; block q of a cluster finishes rows
+  // [q * mp / s, (q + 1) * mp / s) of the band
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cp_async_wait<0>();  // the carry
+  if (p.splits > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int cq = p.cout / 4;
+  for (int i = tid; i < (rhi - rlo) * cq; i += kIrThreads) {
+    const int r = rlo + i / cq, c = 4 * (i - (i / cq) * cq);
+    // every rank's partial loaded before any is added: the (distributed)
+    // shared-memory reads are in flight together
+    int4 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < p.splits)
+        v[k] = *reinterpret_cast<const int4*>(
+            (p.splits > 1 ? cluster.map_shared_rank(sp, k) : sp) + r * p.ld_p + c * 4);
+    uint32_t s[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < p.splits) {
+        s[0] += static_cast<uint32_t>(v[k].x);
+        s[1] += static_cast<uint32_t>(v[k].y);
+        s[2] += static_cast<uint32_t>(v[k].z);
+        s[3] += static_cast<uint32_t>(v[k].w);
       }
-      for_each_acc(acc, [&](int row, int col, int32_t v) {
-        const int r = m0 + row, c = n0 + col;
-        if (r >= mp || c >= p.cout) return;
-        const size_t idx = (pix0 + r) * p.cout + c;
-        int32_t y = add_wrap(v, b2[c]);
-        if (p.has_carry) {
-          y = add_wrap(shl_wrap(y, p.shift_res), shl_wrap(carry[idx], p.shift_carry));
-          y = max(y, -kInt32Max);  // of int32, only INT32_MIN lies outside +-INT32_MAX
-        }
-        if (p.epilogue == kInt32)
-          static_cast<int32_t*>(out)[idx] = y;
-        else
-          static_cast<int8_t*>(out)[idx] = requant8(y, p.net_out, p.out_signed != 0);
-      });
+    const size_t idx = (pix0 + r) * p.cout + c;
+    int32_t y[4];
+    int4 cv = make_int4(0, 0, 0, 0);
+    if (p.has_carry) cv = *reinterpret_cast<const int4*>(sc + (r - rlo) * p.cout + c);
+    const int32_t cc[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      y[e] = add_wrap(static_cast<int32_t>(s[e]), sb2[c + e]);
+      if (p.has_carry) {
+        y[e] = add_wrap(shl_wrap(y[e], p.shift_res), shl_wrap(cc[e], p.shift_carry));
+        y[e] = max(y[e], -kInt32Max);  // of int32, only INT32_MIN lies outside +-INT32_MAX
+      }
     }
+    if (p.epilogue == kInt32) {
+      *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + idx) = make_int4(y[0], y[1], y[2], y[3]);
+    } else {
+      uint32_t v = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v |= static_cast<uint32_t>(static_cast<uint8_t>(requant8(y[e], p.net_out, p.out_signed != 0)))
+             << (8 * e);
+      *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) + idx) = v;
+    }
+  }
+  if (p.splits > 1) cluster.sync();  // keep this block's partial alive for the others
+}
+
+template <int K>
+int launch_ir(const void* x, const void* w1p, const void* b1, const void* wd, const void* bd,
+              const void* w2p, const void* b2, const void* carry, void* out, const IrParams& p,
+              cudaStream_t stream) {
+  // the shared-memory limit is raised once per process, not per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ir_block_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, (p.h + p.th - 1) / p.th, p.n);
+  cfg.blockDim = dim3(kIrThreads);
+  cfg.dynamicSmemBytes = p.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = p.splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = p.splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, ir_block_kernel<K>, static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1p),
+      static_cast<const int32_t*>(b1), static_cast<const int8_t*>(wd),
+      static_cast<const int32_t*>(bd), static_cast<const int8_t*>(w2p),
+      static_cast<const int32_t*>(b2), static_cast<const int32_t*>(carry), out, p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace f8
 
-// x: (n, h, w, cin) int8, cin % 4 == 0; w1: (cin, ce) int8; wd: (k, k, ce)
-// int8, k odd, pad (k-1)/2; w2: (ce, cout) int8; ce % 4 == 0, cout % 4 ==
-// 0, every pointer 4-byte aligned; b1, bd: (ce,) int32; b2: (cout,) int32;
-// carry: (n, h, w, cout) int32 or null; out: (n, h, w, cout) int32
-// (epilogue 0) or int8 (epilogue 1).  Returns cudaErrorInvalidValue when
-// even one output row per block needs more shared memory than a block has.
-extern "C" int f8_ir_block(const void* x, const void* w1, const void* b1, const void* wd,
-                           const void* bd, const void* w2, const void* b2, const void* carry,
-                           void* out, int n, int h, int w, int cin, int ce, int cout, int k,
-                           int net1, int dw_in_signed, int net2, int proj_in_signed,
-                           int epilogue, int net_out, int out_signed, int shift_res,
-                           int shift_carry, void* stream) {
-  const int has_carry = carry != nullptr;
-  f8::IrParams p{n, h, w, cin, ce, cout, k, (k - 1) / 2, 1,
-                 net1, dw_in_signed, net2, proj_in_signed,
-                 epilogue, net_out, out_signed,
-                 has_carry, shift_res, shift_carry};
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p.th = f8::pick_rows(p, sms);
-  const f8::IrLayout l = f8::ir_layout(p, p.th);
-  if (l.total > f8::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(f8::ir_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             l.total);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((h + p.th - 1) / p.th, n);
-  f8::ir_block_kernel<<<grid, f8::kThreads, l.total, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
-      static_cast<const int32_t*>(b1), static_cast<const int8_t*>(wd),
-      static_cast<const int32_t*>(bd), static_cast<const int8_t*>(w2),
-      static_cast<const int32_t*>(b2), static_cast<const int32_t*>(carry), out, p, l);
-  return static_cast<int>(cudaGetLastError());
+// x: (n, h, w, cin) int8, xvec-byte aligned (16 if cin % 16 == 0, else 8 or
+// 4); w1p, w2p: packed weights (cin_k / 16 .. , ce_pad, 16) and
+// (.., cout_pad, 16) int8, 16-byte aligned; wd: (k, k, ce) int8; b1, bd:
+// (ce,) int32; b2: (cout,) int32; carry: (n, h, w, cout) int32, 16-byte
+// aligned, or null; out: (n, h, w, cout) int32 (epilogue 0) or int8
+// (epilogue 1); params: the IrParams fields up to `total`, in order, from
+// ops/ir_block.py.  The grid is (splits, bands, n), a cluster of `splits`
+// blocks per band.
+extern "C" int f8_ir_block(const void* x, const void* w1p, const void* b1, const void* wd,
+                           const void* bd, const void* w2p, const void* b2, const void* carry,
+                           void* out, const int* params, int nparams, void* stream) {
+  f8::IrParams p;
+  constexpr int kFields = sizeof(f8::IrParams) / sizeof(int) - 1;
+  if (nparams != kFields) return static_cast<int>(cudaErrorInvalidValue);
+  int* dst = reinterpret_cast<int*>(&p);
+  for (int i = 0; i < kFields; ++i) dst[i] = params[i];
+  p.has_carry = carry != nullptr;
+  if (p.splits < 1 || p.splits > 8 || p.total > f8::kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (p.k == 3) return f8::launch_ir<3>(x, w1p, b1, wd, bd, w2p, b2, carry, out, p, st);
+  return f8::launch_ir<0>(x, w1p, b1, wd, bd, w2p, b2, carry, out, p, st);
 }

@@ -1,8 +1,10 @@
-// Hopper primitives of the port's wgmma kernels (K2 int8_conv.cu): the
-// warpgroup product wgmma.mma_async m64nNk32 with s8 operands and s32
-// accumulators, its shared-memory matrix descriptors, and the fences that
-// order it against the generic-proxy writes (cp.async, st.shared) that fill
-// its operands.  K1, K5, K6 and K7 keep mma_tile.cuh's mma.sync tile.
+// Hopper primitives of the port's wgmma kernels (K2 int8_conv.cu, K5
+// ir_block.cu, K7 int8_gemm_v2.cu): the warpgroup product
+// wgmma.mma_async m64nNk32 (N = 32, 64, 128) with s8 operands and s32
+// accumulators, its shared-memory matrix descriptors, the fences that order
+// it against the generic-proxy writes (cp.async, st.shared) that fill its
+// operands, and the shared-memory mbarriers of K7's producer/consumer ring.
+// K1, K3 and K6 keep mma_tile.cuh's mma.sync tile.
 //
 // Operand layout in shared memory ("no swizzle", K-major, both operands):
 // a tile of R rows (M rows of A, N columns of B) by 64 bytes of the
@@ -76,6 +78,22 @@ __device__ __forceinline__ void wgmma_s8(int32_t (&d)[N / 2], uint64_t da, uint6
                                          int accumulate);
 
 template <>
+__device__ __forceinline__ void wgmma_s8<32>(int32_t (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+template <>
 __device__ __forceinline__ void wgmma_s8<64>(int32_t (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
   asm volatile(
@@ -120,6 +138,42 @@ __device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64], uint64_t da, uin
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// Shared-memory mbarriers (K7's ring): init by one thread, then a block
+// barrier before first use; arrive counts one arrival; wait spins on the
+// phase parity (0 for the first completion of the barrier, then 1, 0, ...).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival on `bar` from each thread whose `pred` is true: a predicated
+// instruction, not a branch, so that a consumer can release a stage from one
+// lane without a divergent path between its warpgroup's wgmmas
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 st;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared.b64 st, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive_if(bar, true); }
+
+// spin until the phase with parity `parity` of `bar` has completed; the loop
+// is inside the asm block (its labels are local to the block)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
       : "memory");
 }
 

@@ -9,11 +9,12 @@ and average pool/classifier `:1383-1415`, as the JAX engine runs it with
   * the head (7x7/s2 conv + bias + ReLU + 3x3/s2 maxpool) in K3 (ops.stem);
   * every 3x3 conv (stride 1 and 2) and the 1x1/s2 shortcuts in K2
     (ops.conv);
-  * in a Bottleneck block (a body of three convs whose middle one is not
-    depthwise) every 1x1/s1 conv -- body.0, body.2, and the 1x1/s1 shortcut
-    of stage 0's first block -- in K7 (ops.gemm_v2), the persistent GEMM
-    the JAX engine takes for 1x1/s1 convs under F8NET_PALLAS_GEMM=v2
-    (`:712-721`): 33 launches per ResNet-50 forward, beside 19 of K2;
+  * every 1x1/s1 conv whose GEMM K7 takes (ops.gemm_v2.takes: its domain,
+    and at least 32 output channels) in K7, the persistent GEMM the JAX
+    engine takes for 1x1/s1 convs under F8NET_PALLAS_GEMM=v2 (`:712-721`),
+    on weights packed once, at construction: in a Bottleneck block body.0,
+    body.2 and the 1x1/s1 shortcut of stage 0's first block, 33 launches
+    per ResNet-50 forward beside 19 of K2; the other 1x1/s1 convs in K1;
   * intra-block convs end in the requant8 epilogue, packed for their unique
     consumer; the last body conv and the shortcut end in int32 for the
     residual add.
@@ -27,10 +28,13 @@ form):
     rows add nothing to the zero-point colsum);
   * every block whose body is a 1x1/s1 expand, a kxk/s1 depthwise with pad
     (k-1)/2 and a 1x1/s1 project in K5 (ops.ir_block), 12 at the published
-    block setting -- decided from the graph's structure alone;
+    block setting -- decided from the graph's structure alone -- with its
+    expand and project weights packed once, at construction;
   * the other blocks layer by layer: depthwise convs (stride 1 and 2) in K4
-    (ops.dw), 1x1/s1 convs in K1 as GEMMs over N*H*W rows;
-  * the tail (1x1 to 1280, int32 + ReLU) in K1.
+    (ops.dw), 1x1/s1 convs as GEMMs over N*H*W rows, in K7 where it takes
+    them (6 per forward) and in K1 otherwise (the 24 -> 144 expand, K = 24,
+    and the 32 -> 16 and 96 -> 24 projects);
+  * the tail (1x1 to 1280, int32 + ReLU) in K7.
 
 Both: the classifier in K1 (ops.gemm), int32 epilogue, logits float32.  The
 glue -- the input pack, the pack of an int32 carry for the next conv, the
@@ -139,22 +143,26 @@ class IntEngine:
             for name, entry in int_params.items()
         }
         self.params = add_zero_point_bias(self.graph, plan, params)
+        # the layers of MobileNetV2 blocks that run whole in K5
+        self._in_k5 = {
+            name for m in model.blocks if fuses_ir(self.graph, m) for name in m.body
+        } if model.name == "mobilenet_v2" else set()
         self._gemm, self._convk, self._stemk = _gemm.int8_gemm, _conv.conv_int8, _stem.stem_pool
         self._dwk, self._irk = _dw.dw_int8, _ir.fused_ir_block
         self._gemm2 = _gemm_v2.int8_gemm_v2
-        # the 1x1/s1 convs of Bottleneck blocks, which run in K7
-        self._on_v2 = {
-            name for m in model.blocks if is_bottleneck(self.graph, m)
-            for name in (*m.body, m.shortcut) if name and is_pointwise(self.graph[name])
-        }
-        # weights in the kernels' own layouts, packed once: every K2 layer's
-        # (K-major 16-byte chunks) and, for ResNets, the stem's (K3)
+        # weights in the kernels' own layouts, packed once: every K2 and K7
+        # layer's (K-major 16-byte chunks) and, for ResNets, the stem's (K3);
+        # K5's expand and project weights are packed in _fused
         self._packed = {
             name: _conv.pack_conv_weight(self.params[name]["w"])
             for name in self.graph.names()
             if isinstance(self.graph[name], ConvBNSpec) and name != "head"
             and not is_pointwise(self.graph[name]) and not self.graph[name].is_depthwise
         }
+        for name in self.graph.names():
+            if self.on_k7(name):
+                w = self.params[name]["w"]
+                self._packed[name] = _gemm_v2.pack_gemm_weight(w.reshape(-1, w.shape[-1]))
         if model.name == "mobilenet_v2":
             w = self.params["head"]["w"]
             cpad = -w.shape[2] % 16
@@ -164,6 +172,13 @@ class IntEngine:
             }
         else:
             self._stem_w = _stem.pack_stem_weight(self.params["head"]["w"])
+
+    def on_k7(self, name: str) -> bool:
+        """Whether layer `name` runs in K7: a 1x1/s1 conv outside a K5 block
+        whose GEMM K7 takes (ops.gemm_v2.takes)."""
+        spec = self.graph[name]
+        return (isinstance(spec, ConvBNSpec) and is_pointwise(spec) and name not in self._in_k5
+                and _gemm_v2.takes(spec.in_ch, spec.out_ch))
 
     # -- input -------------------------------------------------------------
 
@@ -255,8 +270,8 @@ class IntEngine:
 
     def _product(self, name, x8, w, pack_output_for, relu=False) -> IAct:
         """Layer `name` on its packed operand `x8`, routed by the layer's
-        structure: depthwise -> K4, 1x1/s1 -> K7 in a Bottleneck block and
-        K1 elsewhere, as GEMMs over N*H*W rows, any other conv -> K2 (with
+        structure: depthwise -> K4, 1x1/s1 -> K7 where it takes the GEMM and
+        K1 otherwise, as GEMMs over N*H*W rows, any other conv -> K2 (with
         its weights packed at construction)."""
         pl = self.plan[name]
         spec = self.graph[name]
@@ -271,8 +286,10 @@ class IntEngine:
             )
         if is_pointwise(spec):
             n, h, wd, c = x8.shape
-            gemm = self._gemm2 if name in self._on_v2 else self._gemm
-            y = gemm(x8.reshape(-1, c), w.reshape(c, -1), b, relu=relu, **epi)
+            if self.on_k7(name):  # packed at construction
+                y = self._gemm2(x8.reshape(-1, c), w, b, relu=relu, **epi)
+            else:
+                y = self._gemm(x8.reshape(-1, c), w.reshape(c, -1), b, relu=relu, **epi)
             y = y.reshape(n, h, wd, -1)
         else:
             kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad, relu=relu)
@@ -294,15 +311,15 @@ class IntEngine:
 
     def _ir_operands(self, meta):
         """(w1, b1, wd, bd, w2, b2) of a fused block in K5's layouts: the
-        expand and project weights as (in, out) matrices with the
-        zero-point-compensated biases, the depthwise weights (k, k, Ce) with
-        the plain bias, since K5's depthwise runs on unpacked values
-        (`int_engine.py:932-954`)."""
+        expand and project weights packed once, as the 1x1 weights of K5's
+        operand layout, with the zero-point-compensated biases, the
+        depthwise weights (k, k, Ce) with the plain bias, since K5's
+        depthwise runs on unpacked values (`int_engine.py:932-954`)."""
         en, dn, pn = meta.body
         sd = self.graph[dn]
         ce, k = sd.out_ch, sd.kernel[0]
-        w1 = self.params[en]["w"].reshape(-1, ce)
-        w2 = self.params[pn]["w"].reshape(ce, -1)
+        w1 = _gemm_v2.pack_gemm_weight(self.params[en]["w"].reshape(-1, ce))
+        w2 = _gemm_v2.pack_gemm_weight(self.params[pn]["w"].reshape(ce, -1))
         wd = self.params[dn]["w"].reshape(k, k, ce)
         return w1, self._bias_pad(en)[0], wd, self.params[dn]["b"], w2, self._bias_pad(pn)[0]
 

@@ -135,10 +135,10 @@ def plan_conv(m: int, k: int, o: int, sms: int = H100_SMS) -> ConvPlan:
     return ConvPlan(bn, o_pad, ksteps, mtiles, o_pad // bn, splits)
 
 
-def split_ranges(plan: ConvPlan):
-    """[(first step, end step)] of each split: split s runs steps
-    [s * ksteps // splits, (s + 1) * ksteps // splits), as the kernel
-    computes them from blockIdx.z."""
+def split_ranges(plan):
+    """[(first step, end step)] of each split of a K2 or K7 plan: split s
+    runs steps [s * ksteps // splits, (s + 1) * ksteps // splits), as the
+    kernels compute them from the block's split index."""
     n, s = plan.ksteps, plan.splits
     return [(i * n // s, (i + 1) * n // s) for i in range(s)]
 

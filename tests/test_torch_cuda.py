@@ -14,9 +14,12 @@ that split the reduction across a cluster (ResNet's stage 3), at
 ResNet-50's last 1x1/s2 shortcut and at
 MobileNetV2's C = 16 head, K3 on pooled maps that do not fill a tile and on
 more tiles than its persistent grid holds, depthwise channel counts that
-split unevenly across blocks, K5 blocks at 7x7 x 960 channels and at Cin = Cout = 24, K7 at
-K = 2048 (its largest weight slab on ResNet-50) with an M tail and at
-M = 25088, K6 on every row of 7x7 and 56x56 rasters with the ring masked and
+split unevenly across blocks, K5 at MobileNetV2's twelve block shapes at batch 1-2 and at ragged
+channel counts, under forced plans (band heights with halos, Ce split
+across clusters of 2-8), with plain and packed weights, K7 at K = 64 and
+K = 2048 with M tails, at M = 25088, under forced plans (both tile widths,
+clusters of 2 and 8, persistent grids smaller than the tile count), with
+plain and packed weights, K6 on every row of 7x7 and 56x56 rasters with the ring masked and
 not, negative shifts, ReLU, and biases that make the int32 epilogue and the
 K5 carry add wrap.  Every comparison is bitwise.
 """
@@ -29,6 +32,8 @@ from f8net_tpu_torch.ops import conv_flat_int8, conv_int8, dw_int8, fused_ir_blo
 from f8net_tpu_torch.ops import int8_gemm_v2, pack_flat, stem_pool, unpack_flat
 from f8net_tpu_torch.ops import PackedConvWeight, pack_conv_weight, pack_stem_weight
 from f8net_tpu_torch.ops.conv import conv_int8_plain
+from f8net_tpu_torch.ops.gemm_v2 import GemmPlan, pack_gemm_weight
+from f8net_tpu_torch.ops.ir_block import _layout as ir_layout
 from f8net_tpu_torch.ops.conv_flat import conv_flat_int8_plain
 from f8net_tpu_torch.ops.dw import dw_int8_plain
 from f8net_tpu_torch.ops.gemm import int8_gemm_plain
@@ -86,7 +91,8 @@ def test_int8_gemm_kernel_vs_plain(dev, M, K, N, wrap):
 @pytest.mark.parametrize(
     "M,K,N",
     [(392, 2048, 512), (25088, 64, 256), (25088, 64, 64), (1568, 1024, 512), (130, 48, 72),
-     (65, 16, 4), (1, 3328, 8), (200, 96, 132)],
+     (65, 16, 4), (1, 3328, 8), (200, 96, 132), (300, 64, 256), (1000, 2048, 512),
+     (1568, 1024, 256), (6272, 512, 128), (777, 64, 68)],
 )
 @pytest.mark.parametrize("wrap", [False, True])
 def test_int8_gemm_v2_kernel_vs_k1_and_plain(dev, M, K, N, wrap):
@@ -96,9 +102,33 @@ def test_int8_gemm_v2_kernel_vs_k1_and_plain(dev, M, K, N, wrap):
     for kw in GEMM_EPILOGUES:
         got = int8_gemm_v2(xd, wd, bd, **kw)
         k1 = int8_gemm(xd, wd, bd, **kw)
+        packed = int8_gemm_v2(xd, pack_gemm_weight(wd), bd, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, k1), kw
+        assert torch.equal(packed, got), kw
         assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
+
+
+# (M, K, N, plan): tile widths, splits of 2 and 8 across a cluster, and
+# persistent grids smaller than the tile count (several tiles per block)
+GEMM_PLANS = [
+    (1000, 256, 256, GemmPlan(64, 256, 4, 8, 4, 1, 3)),
+    (1000, 256, 256, GemmPlan(128, 256, 4, 8, 2, 1, 5)),
+    (1000, 256, 256, GemmPlan(128, 256, 4, 8, 2, 2, 32)),
+    (392, 2048, 200, GemmPlan(64, 256, 32, 4, 4, 8, 128)),
+    (129, 64, 64, GemmPlan(64, 64, 1, 2, 1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("M,K,N,plan", GEMM_PLANS)
+def test_int8_gemm_v2_plans_vs_plain(dev, M, K, N, plan):
+    rng = np.random.RandomState(M + K + N + plan.grid)
+    x, w, b = _int8(rng, (M, K)), _int8(rng, (K, N), -127), _bias(rng, N, True)
+    wp = pack_gemm_weight(w.to(dev))
+    for kw in GEMM_EPILOGUES:
+        got = int8_gemm_v2(x.to(dev), wp, b.to(dev), plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), (plan, kw)
 
 
 # (n, h, w, c, o, k, pad_value)
@@ -235,6 +265,16 @@ IR_SHAPES = [
     (3, 5, 9, 24, 48, 24, 3, False),
     (1, 9, 9, 64, 384, 96, 5, False),
     (2, 14, 14, 96, 576, 96, 3, True),
+    # MobileNetV2's other K5 shapes at batch 1-2
+    (1, 56, 56, 24, 144, 24, 3, True),
+    (2, 28, 28, 32, 192, 32, 3, True),
+    (2, 14, 14, 64, 384, 64, 3, True),
+    (1, 14, 14, 64, 384, 96, 3, False),
+    (1, 7, 7, 160, 960, 160, 3, True),
+    (2, 7, 7, 160, 960, 320, 3, False),
+    # ragged: Ce, Cin and Cout not multiples of 32 or 16, 4-byte input rows
+    (2, 9, 13, 20, 100, 36, 3, True),
+    (1, 6, 17, 40, 68, 12, 5, False),
 ]
 # junction formats: (dw_in_signed, proj_in_signed, out, net_out, out_signed)
 IR_FORMATS = [
@@ -269,6 +309,38 @@ def test_fused_ir_block_kernel_vs_plain(dev, n, h, w, cin, ce, cout, k, carry, w
         torch.cuda.synchronize()
         want = fused_ir_block_plain(*args, **kw)
         assert torch.equal(got.cpu(), want), kw
+
+
+# (n, h, w, cin, ce, cout, k, th, splits): bands with halos, Ce split
+# across clusters of 2-8, a whole image per block
+IR_PLANS = [
+    (2, 14, 14, 64, 384, 96, 3, 14, 8),
+    (2, 14, 14, 64, 384, 96, 3, 3, 3),
+    (1, 28, 28, 32, 192, 32, 3, 1, 1),
+    (2, 7, 7, 160, 960, 320, 3, 7, 4),
+    (1, 9, 13, 20, 100, 36, 5, 2, 2),
+]
+
+
+@pytest.mark.parametrize("n,h,w,cin,ce,cout,k,th,splits", IR_PLANS)
+def test_fused_ir_block_plans_vs_plain(dev, n, h, w, cin, ce, cout, k, th, splits):
+    rng = np.random.RandomState(n + h + cin + ce + th + splits)
+    x = _int8(rng, (n, h, w, cin))
+    w1, wd = _int8(rng, (cin, ce), -40, 41), _int8(rng, (k, k, ce), -127)
+    w2 = _int8(rng, (ce, cout), -40, 41)
+    b1, bd, b2 = _bias(rng, ce, False), _bias(rng, ce, False), _bias(rng, cout, True)
+    c = torch.from_numpy(rng.randint(-(1 << 20), 1 << 20, (n, h, w, cout)).astype(np.int32))
+    units = -(-ce // 32)
+    su = -(-units // splits)  # 32-channel units per slice
+    plan = ir_layout(h, w, cin, ce, cout, k, th, -(-units // su), 32 * su)
+    kw = dict(net1=8, dw_in_signed=False, net2=10 + k, proj_in_signed=False, out="int32",
+              shift_res=1, shift_carry=2)
+    got = fused_ir_block(
+        x.to(dev), pack_gemm_weight(w1.to(dev)), b1.to(dev), wd.to(dev), bd.to(dev),
+        pack_gemm_weight(w2.to(dev)), b2.to(dev), c.to(dev), plan=plan, **kw,
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fused_ir_block_plain(x, w1, b1, wd, bd, w2, b2, c, **kw))
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -328,6 +400,24 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="mixed devices"):
         w24 = torch.zeros((24, 48), dtype=torch.int8, device=dev)
         fused_ir_block(x24, w24, b48, wd.cpu(), b48, w2, b24)
+    # packed K5 and K7 weights that do not fit the call
+    with pytest.raises(ValueError, match="w1 must be"):
+        fused_ir_block(x24, pack_gemm_weight(w1), b48, wd, b48, w2, b24)
+    p24 = pack_gemm_weight(torch.zeros((24, 48), dtype=torch.int8, device=dev))
+    bad24 = PackedConvWeight(p24.data[:, :32].contiguous(), 1, 1, 24, 48)
+    with pytest.raises(ValueError, match="packed weight data"):
+        fused_ir_block(x24, bad24, b48, wd, b48, w2, b24)
+    pg = pack_gemm_weight(torch.zeros((64, 8), dtype=torch.int8, device=dev))
+    x64 = torch.zeros((4, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="packed weight data"):
+        int8_gemm_v2(x64, PackedConvWeight(pg.data[:2].contiguous(), 1, 1, 64, 8), b24[:8])
+    with pytest.raises(ValueError, match="1x1 conv"):
+        int8_gemm_v2(x64, pack_conv_weight(torch.zeros((2, 2, 16, 8), dtype=torch.int8,
+                                                       device=dev)), b24[:8])
+    with pytest.raises(ValueError, match="shapes"):
+        int8_gemm_v2(torch.zeros((4, 32), dtype=torch.int8, device=dev), pg, b24[:8])
+    with pytest.raises(ValueError, match="plan does not fit"):
+        int8_gemm_v2(x64, pg, b24[:8], plan=GemmPlan(64, 64, 1, 1, 1, 2, 2))
     x24m = torch.zeros((4, 24), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="K % 16"):
         int8_gemm_v2(x24m, torch.zeros((24, 8), dtype=torch.int8, device=dev), b24[:8])

@@ -15,7 +15,7 @@ from f8net_tpu.utils import QuantConfig as JaxQuantConfig
 from f8net_tpu_torch.engine import IntEngine
 from f8net_tpu_torch.export import params_from_numpy
 from f8net_tpu_torch.models import get_model
-from f8net_tpu_torch.ops import gemm as gemm_ops
+from f8net_tpu_torch.ops import gemm_v2 as gemm_v2_ops
 from f8net_tpu_torch.utils import QuantConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,11 +116,13 @@ def test_resnet50_routes_pointwise_convs_to_k7():
     eng = IntEngine(model, *params_from_numpy(records, arrays, device="cpu"), device="cpu")
     want = {n for m in model.blocks for n in (m.body[0], m.body[2])}
     want.add("stage_0_layer_0.shortcut.0")
-    assert eng._on_v2 == want and len(want) == 33
+    assert {n for n in model.graph.names() if eng.on_k7(n)} == want and len(want) == 33
     routed = []
-    eng._gemm2 = lambda *a, **kw: routed.append(a[1].shape) or gemm_ops.int8_gemm_plain(*a, **kw)
+    eng._gemm2 = lambda *a, **kw: routed.append(a[1]) or gemm_v2_ops.int8_gemm_v2_plain(*a, **kw)
     eng(torch.zeros((1, 32, 32, 3), dtype=torch.uint8))
     assert len(routed) == 33
+    # each call carries the weights packed for K7 at construction
+    assert all(any(w is eng._packed[n] for n in want) for w in routed)
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
