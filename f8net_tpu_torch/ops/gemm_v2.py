@@ -51,7 +51,7 @@ def takes(k: int, n: int) -> bool:
     == 0, K <= MAX_K, N % 4 == 0) and at least MIN_N columns wide.  On an
     H100 K7 ran no slower than K1 at every pointwise conv of ResNet-50 and
     MobileNetV2 this admits, and slower at the two it does not (N = 16 and
-    24; PERF.md section 6, PR 5)."""
+    24; PERF.md section 6)."""
     return k % 16 == 0 and k <= MAX_K and n % 4 == 0 and n >= MIN_N
 
 

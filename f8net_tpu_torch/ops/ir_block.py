@@ -56,7 +56,7 @@ BLOCKS_PER_SM = 2  # csrc/ir_block.cu __launch_bounds__(256, 2)
 # bytes read across the cluster, at per-SM rates; blocks that share an SM
 # overlap half their work.  The constants were fitted to the H100 times of
 # every plan probe_plans.py tries at MobileNetV2's K5 calls (PERF.md
-# section 6, PR 5); they only rank plans.
+# section 6); they only rank plans.
 _FIXED_NS, _TC_MAC_NS, _DW_MAC_NS, _L2_B_NS, _DSMEM_B_NS = 250.0, 500.0, 200.0, 40.0, 25.0
 _OVERLAP = 0.5
 
