@@ -1,7 +1,8 @@
-// Block tile of the port's s8 x s8 -> s32 products (K1 int8_gemm.cu, K2
-// int8_conv.cu and the two 1x1 products of K5 ir_block.cu): a 64 x 64 output
-// tile per block of 4 warps, each warp 32 x 32, on mma.sync.m16n8k32
-// tensor-core instructions.
+// Block tile of the port's mma.sync s8 x s8 -> s32 products (K1
+// int8_gemm.cu, K6 conv_flat.cu; K3 stem_pool.cu uses its fragment
+// primitives): a 64 x 64 output tile per block of 4 warps, each warp 32 x 32,
+// on mma.sync.m16n8k32 tensor-core instructions.  The wgmma kernels (K2, K5,
+// K7) take only the cp.async helpers and kMaxSmem from here.
 //
 // Per step of the reduction the block stages a 64 x 64-byte A tile (rows =
 // GEMM rows or output pixels, k contiguous) and a 64 x 64-byte B tile
@@ -132,14 +133,13 @@ __device__ __forceinline__ uint32_t load_row4(const int8_t* row, int n, int N) {
 }
 
 // Stage B[k0 .. k0+kvalid, n0 .. n0+64) of a (K, N) row-major int8 matrix
-// whose row k0 starts at `w` (row stride N) as sb[n][k], row stride ldb
-// (kLDS for a one-step tile; K7 keeps a whole K-deep slab at a wider stride).
+// whose row k0 starts at `w` (row stride N) as sb[n][k], row stride kLDS.
 // Each thread moves two 4 x 4 byte blocks: four row loads, a register
 // transpose with byte permutes, four 32-bit column stores.  Rows past kvalid
 // and columns past N are staged as 0.  kVec4 requires N % 4 == 0.
 template <bool kVec4>
 __device__ __forceinline__ void load_b_kn(int8_t* sb, const int8_t* w, int N, int kvalid,
-                                          int n0, int ldb = kLDS) {
+                                          int n0) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int q = threadIdx.x + j * kThreads;
@@ -159,7 +159,7 @@ __device__ __forceinline__ void load_b_kn(int8_t* sb, const int8_t* w, int N, in
         __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc)
-      *reinterpret_cast<uint32_t*>(sb + (nq * 4 + cc) * ldb + k) = c[cc];
+      *reinterpret_cast<uint32_t*>(sb + (nq * 4 + cc) * kLDS + k) = c[cc];
   }
 }
 
