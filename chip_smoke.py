@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed N]
 
 Drives the port's three main paths -- ResNet-18, MobileNetV2 and ResNet-50
-strict integer inference at 224x224, full width, 1000 classes -- through the
-entry points a user calls (`load_deploy_bundle`, `model_from_topology`,
+integer inference at 224x224, full width, 1000 classes -- each in the
+engine's three boundary rungs (strict, `int8_boundary=True`,
+`bf16_boundary=True`), nine forwards, through the entry points a user calls
+(`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
 from the seed:
 
@@ -14,17 +16,21 @@ from the seed:
   bundle   per path, a synthetic baked model (int8 weights, int32 biases,
            fraclens calibrated on the card), written as a deploy bundle and
            loaded back
-  engine   per path, batch 8 through the kernels and through their plain
-           PyTorch versions: logits bitwise equal, launches per forward as
-           LAUNCHES_PER_FORWARD (ResNet-18: 19 K2 + 1 K3 + 1 K1; MobileNetV2:
-           1 K2 + 5 K4 + 4 K1 + 7 K7 + 12 K5; ResNet-50: 1 K3 + 19 K2 + 33
-           K7 + 1 K1), non-degenerate logits, and every 8-bit operand (K5's
-           internal ones included) clamped less than MAX_CLAMPED and zero
-           less than MAX_ZERO of the time; logged: how far logits and block
-           outputs are from the float network's
-  kernels  every kernel call of those forwards (plus K1's requant8 epilogue at
-           a 1x1-conv shape) against its plain version on the same inputs;
-           K1 on each K7 call, equal to K7
+  engine   per path and rung, batch 8 through the kernels and through their
+           plain PyTorch versions: logits bitwise equal, launches per
+           forward as LAUNCHES_PER_FORWARD in every rung (ResNet-18: 19 K2 +
+           1 K3 + 1 K1; MobileNetV2: 1 K2 + 5 K4 + 4 K1 + 7 K7 + 12 K5;
+           ResNet-50: 1 K3 + 19 K2 + 33 K7 + 1 K1), non-degenerate logits,
+           and every 8-bit operand (K5's internal ones and its requant8
+           outputs, the int8 rung's packed carries, included) clamped less
+           than MAX_CLAMPED and zero less than MAX_ZERO of the time; logged:
+           how far logits and block outputs are from the float network's,
+           and each relaxed rung's top-1 agreement with and L2 distance to
+           the strict rung's logits and the float network's
+  kernels  every kernel call of those forwards (K5 in its int32-carry,
+           1-byte-carry and bf16-output forms; plus K1's requant8 epilogue
+           at a 1x1-conv shape) against its plain version on the same
+           inputs; K1 on each K7 call, equal to K7
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
@@ -35,8 +41,11 @@ from the seed:
            split (ops/conv.py:plan_conv), K5 per call with its band height
            and Ce split (ops/ir_block.py:plan_ir), K7 per shape with its
            tile, split and grid (ops/gemm_v2.py:plan_gemm) beside K1 and
-           torch._int_mm; per path, whole-forward images/s, device-busy
-           share and device-time breakdown at batch 8 and 64
+           torch._int_mm; per path and rung, whole-forward images/s,
+           device-busy share, glue ms and device-time breakdown at batch 8
+           and 64, beside the bf16 baseline's images/s (engine.baseline,
+           cuDNN, fed (x / 256) in bf16 as bench.py does) and each rung's
+           ratio to it
 
 The engine hands K2, K3, K5 and K7 the weights it packed at construction
 (PackedConvWeight, pack_stem_weight); the plain versions compute from the
@@ -52,6 +61,7 @@ fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
@@ -64,7 +74,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from f8net_tpu_torch.engine import IntEngine
+from f8net_tpu_torch.engine import IntEngine, plain_forward, plain_params
 from f8net_tpu_torch.engine.int_engine import is_bottleneck
 from f8net_tpu_torch.export import (
     load_deploy_bundle, model_from_topology, save_deploy_bundle,
@@ -134,7 +144,11 @@ ENGINE_ATTRS = {
     "int8_gemm": "_gemm", "conv_int8": "_convk", "stem_pool": "_stemk",
     "dw_int8": "_dwk", "ir_block": "_irk", "int8_gemm_v2": "_gemm2",
 }
-# kernel launches per forward of each main path; kernels not named: 0
+# the relaxed rungs, as IntEngine's keywords, and their names in the log
+RUNGS = {"int8_boundary": "int8", "bf16_boundary": "bf16"}
+# kernel launches per forward of each main path, in every rung (the rungs
+# change what crosses a block boundary, not which products run where);
+# kernels not named: 0
 LAUNCHES_PER_FORWARD = {
     "resnet18": {"conv_int8": 19, "stem_pool": 1, "int8_gemm": 1},
     "mobilenet_v2": {"conv_int8": 1, "dw_int8": 5, "int8_gemm": 4, "int8_gemm_v2": 7,
@@ -332,7 +346,10 @@ def ir_block_stats(eng: IntEngine, calls):
     """The same shares for the two 8-bit operands inside each recorded K5
     call, from its plain steps 1-4 on the recorded inputs: the expand's
     output as the depthwise reads it (unpacked) and the depthwise's output
-    packed for the project.  Rows are named by the layer that reads them."""
+    packed for the project; and for a requant8 call (a block output packed
+    for the next conv: in the int8 rung, the carry of a residual block) its
+    output.  Rows are named by the layer that reads them, or for an output
+    by the layer that makes it."""
     fused = getattr(eng, "_fused", {})  # MobileNetV2 engines only
     body_of = {id(fused[m.body[0]][0]): m.body for m in eng.model.blocks if m.body[0] in fused}
     rows = []
@@ -345,6 +362,9 @@ def ir_block_stats(eng: IntEngine, calls):
         )
         rows.append((f"{dn} (in K5)", *clamp_zero_shares(ev, kw["dw_in_signed"], packed=False)))
         rows.append((f"{pn} (in K5)", *clamp_zero_shares(d8, kw["proj_in_signed"])))
+        if kw.get("out") == "requant8":
+            y8 = ir_ops.fused_ir_block_plain(*args, **kw)
+            rows.append((f"{pn} output (K5)", *clamp_zero_shares(y8, kw["out_signed"])))
     return rows
 
 
@@ -366,7 +386,8 @@ def engine_phase(eng: IntEngine, x):
     the plain versions with every product's inputs recorded.  Returns
     (kernel logits, plain logits, launches, recorded calls, clamped and
     zero shares of every 8-bit operand, K5's internal ones included)."""
-    ref = IntEngine(eng.model, eng.plan, eng.params, device=eng.device)
+    ref = IntEngine(eng.model, eng.plan, eng.params, device=eng.device,
+                    int8_boundary=eng.int8_boundary, bf16_boundary=eng.bf16_boundary)
     # the same packed weight objects, so that a recorded call names its layer
     for attr in ("_packed", "_stem_w"):
         if hasattr(eng, attr):
@@ -520,16 +541,23 @@ def compare(name, args, kw):
 
 def describe(args, kw) -> str:
     shapes = "x".join(str(tuple(a.shape)) for a in args[:2])
-    if len(args) > 5:  # K5: input x w1 x wd x w2, carry or not
+    if len(args) > 5:  # K5: input x w1 x wd x w2, carry (int32 or int8) or not
         shapes = "x".join(str(tuple(args[i].shape)) for i in (0, 1, 3, 5))
-        shapes += " carry" if len(args) > 7 and args[7] is not None else ""
+        shapes += f" carry {k5_carry(args)}" if k5_carry(args) != "none" else ""
     opts = ",".join(f"{k}={v}" for k, v in sorted(kw.items()))
     return f"{shapes} {opts}"
 
 
+def k5_carry(args) -> str:
+    """A K5 call's carry: "none", "int32" or "int8"."""
+    c = args[7] if len(args) > 7 else None
+    return "none" if c is None else str(c.dtype).split(".")[-1]
+
+
+@functools.lru_cache(maxsize=None)
 def int_mm_ms(M, K, N, device):
     """torch._int_mm at (M, K) x (K, N), or at the nearest larger M it
-    accepts.  Returns (ms, M used)."""
+    accepts, timed once per shape in a run.  Returns (ms, M used)."""
     b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=device)
     for m in sorted({M, *range(max(M, 17), max(M, 17) + 64, 8)}):
         a = torch.randint(-127, 128, (m, K), dtype=torch.int8, device=device)
@@ -549,40 +577,85 @@ def smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def check_path(path: str, seed: int, images, device):
-    """The bundle, engine and kernels phases of one main path.  Returns
-    (engine, launches per forward, [(kernel, args, kwargs, output, max abs
-    err)] of every kernel call of the forward)."""
-    model, plan, params, float_logits = load_synthetic_model(
-        seed, IMAGE_SIZE, 1000, device, images[:BATCH], model_name=path
-    )
-    log(f"{path} bundle: fraclens " + " ".join(f"{p.name}={p.input_fl}" for p in plan.layers))
-    eng = IntEngine(model, plan, params, device=device)
+def drive(label: str, path: str, eng: IntEngine, images, log_calls: bool = True):
+    """The engine and kernels phases of one forward of `path` on `eng`:
+    every kernel call against its plain version, the logits against the
+    plain path's, launches against LAUNCHES_PER_FORWARD, the clamp and zero
+    gates.  Returns (logits, launches per forward, [(kernel, args, kwargs,
+    output, max abs err)] of every kernel call of the forward)."""
     x = eng.condition_input(images[:BATCH])
     logits, logits_ref, counts, calls, stats = engine_phase(eng, x)
     checked = []
     for name, cargs, kw in calls:
         out, err = compare(name, cargs, kw)
         checked.append((name, cargs, kw, out, err))
-        log(f"{path} kernel {name} {describe(cargs, kw)}: equal to its plain version")
-    check_logits(logits, logits_ref, BATCH, 1000)
+        if log_calls or name == "ir_block":
+            log(f"{label} kernel {name} {describe(cargs, kw)}: equal to its plain version")
+    log(f"{label}: all {len(checked)} kernel calls equal to their plain versions")
+    check_logits(logits, logits_ref, x.shape[0], eng.model.num_classes)
     want = expected_launches(path)
-    if counts != want:
-        raise AssertionError(f"{path}: launches per forward {counts}, expected {want}")
-    log(f"{path} engine: logits bitwise equal to the plain path; launches {counts}")
-    float_agreement(path, logits, plan, float_logits)
-    block_errors(path, eng, images[:BATCH])
+    recorded = {name: [c[0] for c in calls].count(name) for name in KERNELS}
+    if recorded != want:
+        raise AssertionError(f"{label}: kernel calls per forward {recorded}, expected {want}")
+    if eng.device.type == "cuda" and counts != want:
+        raise AssertionError(f"{label}: launches per forward {counts}, expected {want}")
+    log(f"{label} engine: logits bitwise equal to the plain path; launches {counts}")
     for name, clamped, zero in stats:
-        log(f"  {path} requant -> {name}: clamped {clamped:.4f} zero {zero:.4f}")
+        log(f"  {label} requant -> {name}: clamped {clamped:.4f} zero {zero:.4f}")
         if clamped >= MAX_CLAMPED or zero >= MAX_ZERO:
-            raise AssertionError(f"{path}: the 8-bit input of {name} is degenerate: clamped "
+            raise AssertionError(f"{label}: the 8-bit input of {name} is degenerate: clamped "
                                  f"{clamped:.4f} (limit {MAX_CLAMPED}), zero {zero:.4f} "
                                  f"(limit {MAX_ZERO})")
+    return logits, counts, checked
+
+
+def check_path(path: str, seed: int, images, device):
+    """The bundle, engine and kernels phases of one main path, strict rung.
+    Returns (engine, launches per forward, [(kernel, args, kwargs, output,
+    max abs err)] of every kernel call of the forward, logits, the float
+    network's logits)."""
+    model, plan, params, float_logits = load_synthetic_model(
+        seed, IMAGE_SIZE, 1000, device, images[:BATCH], model_name=path
+    )
+    log(f"{path} bundle: fraclens " + " ".join(f"{p.name}={p.input_fl}" for p in plan.layers))
+    eng = IntEngine(model, plan, params, device=device)
+    logits, counts, checked = drive(path, path, eng, images)
+    float_agreement(path, logits, plan, float_logits)
+    block_errors(path, eng, images[:BATCH])
+    return eng, counts, checked, logits, float_logits
+
+
+def check_rung(path: str, rung: str, strict, images):
+    """The engine and kernels phases of `path` in a relaxed rung, on the
+    strict engine's bundle, and how far its logits are from the strict
+    rung's and the float network's.  Returns (engine, launches per forward,
+    checked calls) as check_path does."""
+    eng0, _, _, strict_logits, float_logits = strict
+    eng = IntEngine(eng0.model, eng0.plan, eng0.params, device=eng0.device, **{rung: True})
+    label = f"{path} {RUNGS[rung]}"
+    logits, counts, checked = drive(label, path, eng, images, log_calls=False)
+    rung_agreement(label, logits, eng.plan, strict_logits, float_logits)
+    block_errors(label, eng, images[:BATCH])
     return eng, counts, checked
+
+
+def rung_agreement(label, logits, plan, strict_logits, float_logits) -> None:
+    """Logs a relaxed rung's top-1 agreement with, and relative L2 distance
+    to, the strict rung's logits and the float network's (both at their
+    real scale)."""
+    real = logits.double() / 2.0 ** plan["classifier"].out_fl
+    for what, ref in (("strict rung", strict_logits.double() / 2.0 ** plan["classifier"].out_fl),
+                      ("float network", float_logits.double())):
+        agree = (real.argmax(1) == ref.argmax(1)).double().mean().item()
+        rel = ((real - ref).norm() / ref.norm()).item()
+        log(f"{label} engine: top-1 agreement with the {what} {agree:.3f}; relative L2 "
+            f"distance {rel:.4f}")
 
 
 def real_value(act, plan):
     """An engine activation at its real scale, float64."""
+    if act.scaled:  # a bf16 real value
+        return act.x.double()
     v = act.x.double()
     if act.packed_for is not None and not plan[act.packed_for].input_symmetric:
         v = v + 128  # stored as u - 128
@@ -659,20 +732,41 @@ def time_call(name, cargs, kw, out, reps: int, plain_reps: int = 3):
     return (ours / reps / 1e3, call_ms, rest / plain_reps / 1e3) + work(name, cargs, kw, out)
 
 
-def time_forward(path: str, eng: IntEngine, images, card: str) -> None:
+def time_forward(label: str, forward, images, card: str, prepare=None) -> dict:
     """Wall time (CUDA events), device-busy time (profiler) and where the
-    device time goes, for one forward at each timed batch."""
+    device time goes, for one forward at each timed batch; `prepare` makes
+    the forward's input from the images (the engine's condition_input).
+    Returns {batch: images/s}."""
+    ips = {}
     for b in TIMED_BATCHES:
-        xb = eng.condition_input(images[:b])
-        wall = time_ms(lambda: eng(xb), reps=5, rounds=5)
-        busy, ka = device_ms(lambda: eng(xb), reps=5)
-        log(f"{path} forward: batch {b}: {wall:.3f} ms, {1e3 * b / wall:.1f} images/s, device "
-            f"busy {busy:.4f} ms, idle share {1 - busy / wall:.3f} ({card})")
+        xb = prepare(images[:b])
+        wall = time_ms(lambda: forward(xb), reps=5, rounds=5)
+        busy, ka = device_ms(lambda: forward(xb), reps=5)
+        ips[b] = 1e3 * b / wall
         ours = sum(e.self_device_time_total for e in ka if "f8::" in e.key) / 5e3
-        log(f"  {path} forward batch {b}: port kernels {ours:.4f} ms of device time per forward")
+        log(f"{label} forward: batch {b}: {wall:.3f} ms, {ips[b]:.1f} images/s, device "
+            f"busy {busy:.4f} ms, idle share {1 - busy / wall:.3f}, port kernels {ours:.4f} ms, "
+            f"glue {busy - ours:.4f} ms ({card})")
         for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"  {path} forward batch {b}: {e.self_device_time_total / 5e3:.4f} ms, "
+            log(f"  {label} forward batch {b}: {e.self_device_time_total / 5e3:.4f} ms, "
                 f"{e.count // 5} launches: {e.key[:90]}")
+    return ips
+
+
+def time_baseline(path: str, eng: IntEngine, images, card: str) -> dict:
+    """The bf16 baseline of `path` (engine.baseline: the same topology on
+    cuDNN, channels_last) on the engine's own weights, fed (x / 256) of the
+    conditioned uint8 input in bf16, as bench.py feeds it.  Returns {batch:
+    images/s}."""
+    fp = plain_params(eng.model, eng.params)
+    ips = time_forward(
+        f"{path} bf16 baseline", lambda xb: plain_forward(eng.model, fp, xb), images, card,
+        prepare=lambda im: (eng.condition_input(im).to(torch.float32) / 256.0).to(torch.bfloat16),
+    )
+    out = plain_forward(eng.model, fp, (eng.condition_input(images[:BATCH]).float() / 256).bfloat16())
+    if out.shape != (BATCH, 1000):
+        raise AssertionError(f"{path} bf16 baseline: logits {tuple(out.shape)}")
+    return ips
 
 
 def layers_by_weight(eng: IntEngine):
@@ -828,18 +922,24 @@ def log_k2_table(rows, card: str) -> None:
 
 
 def log_k5_table(rows, card: str) -> None:
-    """K5's calls one by one: shape, plan (ops/ir_block.py:plan_ir), device
-    ms beside the bound.  Both products run on wgmma at every shape."""
-    log(f"K5 per call, batch {BATCH}, {IMAGE_SIZE} px ({card}): h x w | cin | ce | cout | carry "
-        f"| out | band rows | bands | Ce splits x channels | blocks | ms | bound ms | x bound")
+    """K5's calls one by one, per forward: shape, form (carry: none, int32
+    or int8 with its offset; output), plan (ops/ir_block.py:plan_ir),
+    device ms beside the bound.  Both products run on wgmma at every
+    shape."""
+    log(f"K5 per call, batch {BATCH}, {IMAGE_SIZE} px ({card}): rung | h x w | cin | ce | cout "
+        f"| carry | out | band rows | bands | Ce splits x channels | blocks | ms | bound ms "
+        f"| x bound")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for cargs, kw, out, ms, bound in rows:
+    for label, cargs, kw, out, ms, bound in rows:
         n, h, w, cin = cargs[0].shape
         kh, _, ce = cargs[3].shape
         cout = out.shape[3]
-        plan = ir_ops.plan_ir(n, h, w, cin, ce, cout, kh, sms)
-        carry = len(cargs) > 7 and cargs[7] is not None
-        log(f"  K5 | {h}x{w} | {cin} | {ce} | {cout} | {'yes' if carry else 'no'} | {kw['out']} "
+        carry = k5_carry(cargs)
+        cb, ob = ir_ops.call_bytes(None if carry == "none" else cargs[7], kw["out"])
+        plan = ir_ops.plan_ir(n, h, w, cin, ce, cout, kh, sms, cb, ob)
+        if carry == "int8":
+            carry += f" +{kw.get('carry_add_offset', 0)}"
+        log(f"  K5 | {label} | {h}x{w} | {cin} | {ce} | {cout} | {carry} | {kw['out']} "
             f"| {plan.th} | {plan.bands} | {plan.splits} x {plan.cs} | {n * plan.bands * plan.splits} "
             f"| {ms:.4f} | {bound:.5f} | {ms / bound:.1f}")
 
@@ -872,6 +972,83 @@ def add_to(row, path, key, ms):
     by[key] = (by.get(key) or 0.0) + ms
 
 
+def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dict:
+    """Times every kernel call of every forward, K6 on its recorded
+    activations beside K2, K1's extra requant8 call, and each path's whole
+    forwards in each rung beside the bf16 baseline; logs the K2, K5 and K7
+    tables and the images/s table.  `extra` is (args, kwargs, output) of
+    K1's extra call; `images` the batch the forwards are timed on.  Returns {kernel: its row of the kernel table}."""
+    extra, extra_kw, extra_out = extra
+    # timing: each call of each forward (all three rungs); a kernel's row
+    # sums its calls, a GEMM's library time sums torch._int_mm at the same
+    # calls, and K7's row also sums K1's time at its calls.  The K2 and K7
+    # tables list the strict forwards' calls (the rungs make the same calls
+    # on other inputs); the K5 table every forward's, with each call's form.
+    table = {n: new_row(n) for n in KERNELS}
+    k2_rows, k5_rows, k7_rows = [], [], []
+    k1_at_k7 = {}
+    for (path, rung), (eng, counts, checked) in forwards.items():
+        key = path if rung is None else f"{path}/{RUNGS[rung]}"
+        for name, cargs, kw, out, err in checked:
+            ms, bound = time_into(table[name], key, counts[name], name, cargs, kw, out, err)
+            if name == "conv_int8" and rung is None:
+                k2_rows.append((path, cargs, kw, out, ms, bound))
+            if name in ("int8_gemm", "int8_gemm_v2"):
+                (M, K), N = cargs[0].shape, out.shape[1]
+                lib_ms, lib_m = int_mm_ms(M, K, N, device)
+                log(f"{key} library {name}: torch._int_mm at M={lib_m} (call's M={M}), "
+                    f"K={K}, N={N}: {lib_ms:.4f} ms")
+                add_to(table[name], key, "library_ms", lib_ms)
+            if name == "int8_gemm_v2":
+                shape = (tuple(cargs[0].shape), N, tuple(sorted(kw.items())))
+                if shape not in k1_at_k7:  # timed once per shape and epilogue
+                    a1 = k1_args(cargs)
+                    k1_at_k7[shape] = device_ms(lambda: gemm_ops.int8_gemm(*a1, **kw))[0]
+                k1_ms = k1_at_k7[shape]
+                log(f"{key} int8_gemm at the same call: {k1_ms:.4f} ms")
+                add_to(table[name], key, "k1_ms", k1_ms)
+                if rung is None:
+                    k7_rows.append((path, cargs, kw, out, ms, bound, k1_ms, lib_ms))
+            if name == "ir_block":
+                k5_rows.append((RUNGS.get(rung, "strict"), cargs, kw, out, ms, bound))
+    row = table["conv_flat_int8"]
+    for label, k6_calls, k2_calls in flat:
+        path = label.split()[0]
+        k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c)[0] for c in k6_calls)
+        k2 = sum(device_ms(lambda: conv_ops.conv_int8(*a, **kw))[0] for a, kw in k2_calls)
+        log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms at the same call(s)")
+        add_to(row, path, "k2_ms", k2)
+    ms, call_ms, plain_ms, nb, ops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
+    tb, to = bound_s(nb, ops)
+    log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {ops} ops")
+
+    log_k2_table(k2_rows, card)
+    log_k5_table(k5_rows, card)
+    log_k7_table(k7_rows, card)
+
+    # whole forwards: the bf16 baseline first, then each rung, per path, in
+    # one call on one card; cuDNN picks its fastest algorithm for the
+    # baseline, as a bf16 deployment would let it
+    torch.backends.cudnn.benchmark = True
+    speeds = {}
+    for path in LAUNCHES_PER_FORWARD:
+        speeds[(path, "bf16 baseline")] = time_baseline(path, paths[path][0], images, card)
+        for rung in (None, *RUNGS):
+            eng = forwards[(path, rung)][0]
+            label = f"{path} {RUNGS.get(rung, 'strict')}"
+            speeds[(path, label)] = time_forward(label, eng, images, card, eng.condition_input)
+    log(f"images/s and ratio to the bf16 baseline, {IMAGE_SIZE} px ({card}): path | batch | "
+        f"bf16 baseline | strict (ratio) | int8 (ratio) | bf16 (ratio)")
+    for path in LAUNCHES_PER_FORWARD:
+        for b in TIMED_BATCHES:
+            base = speeds[(path, "bf16 baseline")][b]
+            cells = [f"{speeds[(path, f'{path} {r}')][b]:.1f} ({speeds[(path, f'{path} {r}')][b] / base:.3f})"
+                     for r in ("strict", "int8", "bf16")]
+            log(f"  speed | {path} | {b} | {base:.1f} | " + " | ".join(cells))
+    return table
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -897,13 +1074,21 @@ def main(argv=None) -> int:
     images = torch.from_numpy(
         rng.rand(max(TIMED_BATCHES), IMAGE_SIZE, IMAGE_SIZE, 3).astype(np.float32)
     ).to(device)
-    paths = {path: check_path(path, args.seed, images, device) for path in LAUNCHES_PER_FORWARD}
+    strict = {path: check_path(path, args.seed, images, device) for path in LAUNCHES_PER_FORWARD}
+    paths = {path: r[:3] for path, r in strict.items()}
+    # every forward: (path, rung) -> (engine, launches, checked calls); rung
+    # None is the strict one
+    forwards = {(path, None): r for path, r in paths.items()}
+    for path in LAUNCHES_PER_FORWARD:
+        for rung in RUNGS:
+            forwards[(path, rung)] = check_rung(path, rung, strict[path], images)
 
-    for path, (_, counts, checked) in paths.items():
+    for (path, rung), (_, counts, checked) in forwards.items():
         n = k7_against_k1(checked)
         if n != counts["int8_gemm_v2"]:
             raise AssertionError(f"{path}: {n} of {counts['int8_gemm_v2']} K7 calls held to K1")
-        log(f"{path}: all {n} int8_gemm_v2 calls bitwise equal to int8_gemm on the same inputs")
+        log(f"{path} {RUNGS.get(rung, 'strict')}: all {n} int8_gemm_v2 calls bitwise equal to "
+            f"int8_gemm on the same inputs")
     flat = flat_phase(paths)
     for label, k6_calls, _ in flat:
         log(f"kernel conv_flat_int8 {label}: {len(k6_calls)} call(s) equal to its plain version "
@@ -923,49 +1108,7 @@ def main(argv=None) -> int:
 
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
-    # timing: each call of each path's forward; a kernel's row sums its
-    # calls, a GEMM's library time sums torch._int_mm at the same calls, and
-    # K7's row also sums K1's time at its calls
-    table = {n: new_row(n) for n in KERNELS}
-    k2_rows, k5_rows, k7_rows = [], [], []
-    for path, (eng, counts, checked) in paths.items():
-        for name, cargs, kw, out, err in checked:
-            ms, bound = time_into(table[name], path, counts[name], name, cargs, kw, out, err)
-            if name == "conv_int8":
-                k2_rows.append((path, cargs, kw, out, ms, bound))
-            if name in ("int8_gemm", "int8_gemm_v2"):
-                (M, K), N = cargs[0].shape, out.shape[1]
-                lib_ms, lib_m = int_mm_ms(M, K, N, device)
-                log(f"{path} library {name}: torch._int_mm at M={lib_m} (call's M={M}), "
-                    f"K={K}, N={N}: {lib_ms:.4f} ms")
-                add_to(table[name], path, "library_ms", lib_ms)
-            if name == "int8_gemm_v2":
-                a1 = k1_args(cargs)
-                k1_ms = device_ms(lambda: gemm_ops.int8_gemm(*a1, **kw))[0]
-                log(f"{path} int8_gemm at the same call: {k1_ms:.4f} ms")
-                add_to(table[name], path, "k1_ms", k1_ms)
-                k7_rows.append((path, cargs, kw, out, ms, bound, k1_ms, lib_ms))
-            if name == "ir_block":
-                k5_rows.append((cargs, kw, out, ms, bound))
-    row = table["conv_flat_int8"]
-    for label, k6_calls, k2_calls in flat:
-        path = label.split()[0]
-        k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c)[0] for c in k6_calls)
-        k2 = sum(device_ms(lambda: conv_ops.conv_int8(*a, **kw))[0] for a, kw in k2_calls)
-        log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms at the same call(s)")
-        add_to(row, path, "k2_ms", k2)
-    ms, call_ms, plain_ms, nb, ops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
-    tb, to = bound_s(nb, ops)
-    log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {ops} ops")
-
-    log_k2_table(k2_rows, card)
-    log_k5_table(k5_rows, card)
-    log_k7_table(k7_rows, card)
-
-    for path, (eng, _, _) in paths.items():
-        time_forward(path, eng, images, card)
-
+    table = timing_phase(forwards, paths, flat, (extra, extra_kw, extra_out), images, device, card)
     log(f"clocks after timing ({clocks}): {smi(clocks)}")
     kernels = []
     for name, k in KERNELS.items():
@@ -973,7 +1116,7 @@ def main(argv=None) -> int:
         extra_keys = {key: row[key] for key in ("k1_ms", "k2_ms") if key in row}
         kernels.append(dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=sum(counts[name] for _, counts, _ in paths.values()),
+            launches=sum(counts[name] for _, counts, _ in forwards.values()),
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",

@@ -2,11 +2,17 @@
 //   e = requant(x . w1 + b1)                  1x1 expand, s8 x s8 -> s32
 //   d = requant(depthwise_kxk(e, wd) + bd)    on the unpacked grid values
 //   y = d . w2 + b2                           1x1 project, s8 x s8 -> s32
-//   y = clip((y << shift_res) + (carry << shift_carry))   optional residual
-// then an int32 or requant8 output.
+//   y = clip((y << shift_res) + ((carry + offset) << shift_carry))   optional
+// then an int32, requant8 or bf16 output.
 // Replaces f8net_tpu/ops/pallas_ir_block.py:fused_ir_block (:249-329;
-// kernel body _ir_kernel :121-217, pallas_call :317), strict rung (int32 and
-// requant8 outputs, int32 carry).
+// kernel body _ir_kernel :121-217, pallas_call :317) in all its forms: the
+// carry is int32 (strict rung) or a 1-byte operand packed for the block's
+// expand (int8-boundary rung), widened as (int32)c + carry_add_offset (128
+// for an unsigned grid's u - 128) before the shift; the output is int32,
+// requant8, or the real value y * 2^-out_fl in bf16 (bf16-boundary rung),
+// rounded twice as the reference does: int32 -> float32 (__int2float_rn),
+// an exact multiply by 2^-out_fl, float32 -> bf16 (__float2bfloat16_rn) --
+// not __int2bfloat16_rn, which rounds once and differs for |y| >= 2^24.
 //
 // Junction math, in the Pallas kernel's order: the expand requant (net1) is
 // clamped to the depthwise input's range, which absorbs the ReLU, and its
@@ -50,13 +56,18 @@
 //   * every block read all of w1 and w2 (307 KB at 7x7 x 960): a block reads
 //     its slice only;
 //   * the epilogue stores from the accumulator fragment: the partial project
-//     is staged in shared memory and the epilogue writes 16-byte int32 (4-byte
-//     int8) row-contiguous groups, reading the carry the same way.
+//     is staged in shared memory and the epilogue writes 16-byte int32
+//     (8-byte bf16, 4-byte int8) row-contiguous groups of 4 channels,
+//     reading the carry the same way (16 or 4 bytes).  A block's carry rows
+//     start at element (pix0 + rlo) * cout, which for a 1-byte carry at
+//     cout = 24 is 8-byte aligned at best: that carry is copied in pieces
+//     of 16, 8 or 4 bytes, the widest that cout allows.
 // The depthwise stays on the CUDA cores, from shared memory: one thread per
 // (pixel, 4-channel group), its k*k taps read from the expanded rows with
 // their zero border.  The layout of shared memory and the plan come from the
 // wrapper (IrParams, in the order of ops/ir_block.py:_PARAMS).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -69,6 +80,7 @@ namespace f8 {
 
 constexpr int kIrThreads = 256;  // two warpgroups
 constexpr int32_t kInt32Max = 2147483647;
+enum IrOut : int { kOutInt32 = 0, kOutRequant8 = 1, kOutBf16 = 2 };
 
 // The plan and shared-memory layout, as ops/ir_block.py computes them (all
 // offsets in bytes from the start of dynamic shared memory).
@@ -76,7 +88,7 @@ struct IrParams {
   int n, h, w, cin, ce, cout, k, pad;
   int th, cs, splits, cin_k, ce_pad, cout32, cout_pad, xvec;
   int net1, dw_in_signed, net2, proj_in_signed, epilogue, net_out, out_signed;
-  int shift_res, shift_carry, ld_x, ld_d, ld_p;
+  int shift_res, shift_carry, out_fl, carry_offset, ld_x, ld_d, ld_p, carry_bytes;
   int o_w2, o_d, o_wd, o_bd, o_b1, o_b2, o_c, o_x, o_w1, o_e, o_p, total;
   int has_carry;  // set by the C entry
 };
@@ -127,7 +139,7 @@ __global__ void __launch_bounds__(kIrThreads, 2)
     ir_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w1p,
                     const int32_t* __restrict__ b1, const int8_t* __restrict__ wd,
                     const int32_t* __restrict__ bd, const int8_t* __restrict__ w2p,
-                    const int32_t* __restrict__ b2, const int32_t* __restrict__ carry,
+                    const int32_t* __restrict__ b2, const int8_t* __restrict__ carry,
                     void* __restrict__ out, IrParams p) {
   extern __shared__ __align__(128) int8_t smem[];
   int8_t* sw2 = smem + p.o_w2;
@@ -136,7 +148,7 @@ __global__ void __launch_bounds__(kIrThreads, 2)
   int32_t* sbd = reinterpret_cast<int32_t*>(smem + p.o_bd);
   int32_t* sb1 = reinterpret_cast<int32_t*>(smem + p.o_b1);
   int32_t* sb2 = reinterpret_cast<int32_t*>(smem + p.o_b2);
-  int32_t* sc = reinterpret_cast<int32_t*>(smem + p.o_c);  // this block's carry rows
+  int8_t* sc = smem + p.o_c;  // this block's carry rows, carry_bytes per element
   int8_t* sx = smem + p.o_x;
   int8_t* sw1 = smem + p.o_w1;
   uint8_t* se = reinterpret_cast<uint8_t*>(smem + p.o_e);
@@ -190,11 +202,22 @@ __global__ void __launch_bounds__(kIrThreads, 2)
                w2p + (static_cast<size_t>(c0 / 16 + j) * p.cout_pad + r) * 16, true);
   }
   cp_async_commit();
-  // group 2: the carry of the pixels this block finishes, for the epilogue
+  // group 2: the carry of the pixels this block finishes, for the epilogue,
+  // in the widest pieces its alignment allows (an int32 carry's rows are
+  // always 16-byte aligned: cout % 4 == 0)
   if (p.has_carry) {
-    const int8_t* src = reinterpret_cast<const int8_t*>(carry + (pix0 + rlo) * p.cout);
-    for (int i = tid; i < (rhi - rlo) * p.cout / 4; i += kIrThreads)
-      cp_async16(reinterpret_cast<int8_t*>(sc) + 16 * i, src + 16 * i, true);
+    const int8_t* src = carry + (pix0 + rlo) * p.cout * p.carry_bytes;
+    const int bytes = (rhi - rlo) * p.cout * p.carry_bytes;
+    const int row_bytes = p.cout * p.carry_bytes;
+    if (row_bytes % 16 == 0) {
+      for (int i = tid; i < bytes / 16; i += kIrThreads) cp_async16(sc + 16 * i, src + 16 * i, true);
+    } else if (row_bytes % 8 == 0) {
+      for (int i = tid; i < bytes / 8; i += kIrThreads)
+        cp_async_small<8>(sc + 8 * i, src + 8 * i, true);
+    } else {
+      for (int i = tid; i < bytes / 4; i += kIrThreads)
+        cp_async_small<4>(sc + 4 * i, src + 4 * i, true);
+    }
   }
   cp_async_commit();
   // the slice's depthwise weights and biases, 0 past ce; the zero border
@@ -339,6 +362,7 @@ __global__ void __launch_bounds__(kIrThreads, 2)
   else
     __syncthreads();
   const int cq = p.cout / 4;
+  const float out_scale = ldexpf(1.0f, -p.out_fl);  // exact: a power of two
   for (int i = tid; i < (rhi - rlo) * cq; i += kIrThreads) {
     const int r = rlo + i / cq, c = 4 * (i - (i / cq) * cq);
     // every rank's partial loaded before any is added: the (distributed)
@@ -360,19 +384,41 @@ __global__ void __launch_bounds__(kIrThreads, 2)
       }
     const size_t idx = (pix0 + r) * p.cout + c;
     int32_t y[4];
-    int4 cv = make_int4(0, 0, 0, 0);
-    if (p.has_carry) cv = *reinterpret_cast<const int4*>(sc + (r - rlo) * p.cout + c);
-    const int32_t cc[4] = {cv.x, cv.y, cv.z, cv.w};
+    int32_t cc[4] = {0, 0, 0, 0};
+    if (p.has_carry) {
+      const int8_t* crow = sc + ((r - rlo) * p.cout + c) * p.carry_bytes;
+      if (p.carry_bytes == 4) {
+        const int4 cv = *reinterpret_cast<const int4*>(crow);
+        cc[0] = cv.x, cc[1] = cv.y, cc[2] = cv.z, cc[3] = cv.w;
+      } else {
+        const uint32_t cv = *reinterpret_cast<const uint32_t*>(crow);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cc[e] = static_cast<int8_t>(cv >> (8 * e));
+      }
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       y[e] = add_wrap(static_cast<int32_t>(s[e]), sb2[c + e]);
       if (p.has_carry) {
-        y[e] = add_wrap(shl_wrap(y[e], p.shift_res), shl_wrap(cc[e], p.shift_carry));
+        // widen, then offset, then shift: (c + 128) << shift_carry on an
+        // unsigned grid, every step wrapping in uint32 as JAX's int32 does
+        const int32_t widened = add_wrap(cc[e], p.carry_offset);
+        y[e] = add_wrap(shl_wrap(y[e], p.shift_res), shl_wrap(widened, p.shift_carry));
         y[e] = max(y[e], -kInt32Max);  // of int32, only INT32_MIN lies outside +-INT32_MAX
       }
     }
-    if (p.epilogue == kInt32) {
+    if (p.epilogue == kOutInt32) {
       *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + idx) = make_int4(y[0], y[1], y[2], y[3]);
+    } else if (p.epilogue == kOutBf16) {
+      uint32_t h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const __nv_bfloat16 lo = __float2bfloat16_rn(__int2float_rn(y[2 * e]) * out_scale);
+        const __nv_bfloat16 hi = __float2bfloat16_rn(__int2float_rn(y[2 * e + 1]) * out_scale);
+        h[e] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+      }
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + idx) = make_uint2(h[0], h[1]);
     } else {
       uint32_t v = 0u;
 #pragma unroll
@@ -409,7 +455,7 @@ int launch_ir(const void* x, const void* w1p, const void* b1, const void* wd, co
       &cfg, ir_block_kernel<K>, static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1p),
       static_cast<const int32_t*>(b1), static_cast<const int8_t*>(wd),
       static_cast<const int32_t*>(bd), static_cast<const int8_t*>(w2p),
-      static_cast<const int32_t*>(b2), static_cast<const int32_t*>(carry), out, p);
+      static_cast<const int32_t*>(b2), static_cast<const int8_t*>(carry), out, p);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -418,10 +464,10 @@ int launch_ir(const void* x, const void* w1p, const void* b1, const void* wd, co
 // x: (n, h, w, cin) int8, xvec-byte aligned (16 if cin % 16 == 0, else 8 or
 // 4); w1p, w2p: packed weights (cin_k / 16 .. , ce_pad, 16) and
 // (.., cout_pad, 16) int8, 16-byte aligned; wd: (k, k, ce) int8; b1, bd:
-// (ce,) int32; b2: (cout,) int32; carry: (n, h, w, cout) int32, 16-byte
-// aligned, or null; out: (n, h, w, cout) int32 (epilogue 0) or int8
-// (epilogue 1); params: the IrParams fields up to `total`, in order, from
-// ops/ir_block.py.  The grid is (splits, bands, n), a cluster of `splits`
+// (ce,) int32; b2: (cout,) int32; carry: (n, h, w, cout) int32 or int8
+// (carry_bytes 4 or 1), 16-byte aligned, or null; out: (n, h, w, cout) int32
+// (epilogue 0), int8 (epilogue 1) or bf16 (epilogue 2); params: the IrParams
+// fields up to `total`, in order, from ops/ir_block.py.  The grid is (splits, bands, n), a cluster of `splits`
 // blocks per band.
 extern "C" int f8_ir_block(const void* x, const void* w1p, const void* b1, const void* wd,
                            const void* bd, const void* w2p, const void* b2, const void* carry,
@@ -432,7 +478,8 @@ extern "C" int f8_ir_block(const void* x, const void* w1p, const void* b1, const
   int* dst = reinterpret_cast<int*>(&p);
   for (int i = 0; i < kFields; ++i) dst[i] = params[i];
   p.has_carry = carry != nullptr;
-  if (p.splits < 1 || p.splits > 8 || p.total > f8::kMaxSmem)
+  if (p.splits < 1 || p.splits > 8 || p.total > f8::kMaxSmem || p.epilogue < 0 || p.epilogue > 2 ||
+      (p.has_carry && p.carry_bytes != 1 && p.carry_bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (p.k == 3) return f8::launch_ir<3>(x, w1p, b1, wd, bd, w2p, b2, carry, out, p, st);

@@ -1,6 +1,20 @@
-"""Integer-only inference engine, strict rung -- the port of
+"""Integer-only inference engine -- the port of
 `f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`) for ResNets and
-MobileNetV2.
+MobileNetV2, in its three boundary rungs:
+  * strict (the default): block boundaries carry exact int32 accumulators;
+  * int8-boundary (`int8_boundary=True`, `:1459-1490`): every block output
+    is requantized once onto the next block's first conv's 8-bit grid and
+    crosses memory packed, 1 byte per element; a residual add widens the
+    packed carry back to int32 (`_widen`), and a second consumer on another
+    grid (a ResNet shortcut) gets a widened-and-requantized copy;
+  * bf16-boundary (`bf16_boundary=True`): every conv output with no unique
+    consumer conv is emitted as its real value in bf16 (`_emit`
+    `:813-825`, ops.fxp.to_real_bf16), residual adds are bf16 adds, and a
+    conv reading a bf16 value quantizes it onto its 8-bit grid
+    (ops.fxp.pack_real).
+Every product runs in the port's kernels in all three rungs (the JAX engine
+kept its Pallas kernels off the relaxed rungs, `:1483-1489`, except K5); the
+conversions between int32, packed int8 and bf16 are glue.
 
 ResNet, BasicBlock (18, 34) and Bottleneck (50, 101, 152) alike
 (`_forward`'s ResNet branch `:1283-1361`, `_block_resnet_int` `:1054-1073`
@@ -17,7 +31,14 @@ and average pool/classifier `:1383-1415`, as the JAX engine runs it with
     per ResNet-50 forward beside 19 of K2; the other 1x1/s1 convs in K1;
   * intra-block convs end in the requant8 epilogue, packed for their unique
     consumer; the last body conv and the shortcut end in int32 for the
-    residual add.
+    residual add (converted to bf16 in the bf16 rung);
+  * the stem stays whole in K3 in every rung: its pooled int32 is packed
+    for stage 0's first conv (int8 rung) or converted to bf16 (bf16 rung)
+    after the pool.  The reference packs or converts before an XLA maxpool
+    (`:1338-1356`, int8 init -128); the two agree exactly, because the
+    requant with its u - 128 map and int32 -> float32 -> bf16 are monotone
+    non-decreasing, so max commutes with them, and every 3x3/s2/p1 window
+    holds a real pixel, so no pad value is ever the max.
 
 MobileNetV2 (`_forward`'s MobileNetV2 branch `:1367-1381`,
 `_block_mbv2_int` `:1112-1136`, `try_fused_ir` `:862-1031` in its strict
@@ -29,21 +50,30 @@ form):
   * every block whose body is a 1x1/s1 expand, a kxk/s1 depthwise with pad
     (k-1)/2 and a 1x1/s1 project in K5 (ops.ir_block), 12 at the published
     block setting -- decided from the graph's structure alone -- with its
-    expand and project weights packed once, at construction;
+    expand and project weights packed once, at construction; a residual
+    block takes its carry as int32 (strict) or packed 1-byte (int8 rung,
+    widened in K5's epilogue) and ends in int32 (strict), requant8 for the
+    next block (int8 rung), or bf16 followed by the bf16 add outside K5
+    (bf16 rung);
   * the other blocks layer by layer: depthwise convs (stride 1 and 2) in K4
     (ops.dw), 1x1/s1 convs as GEMMs over N*H*W rows, in K7 where it takes
     them (6 per forward) and in K1 otherwise (the 24 -> 144 expand, K = 24,
     and the 32 -> 16 and 96 -> 24 projects);
-  * the tail (1x1 to 1280, int32 + ReLU) in K7.
+  * the tail (1x1 to 1280, int32 + ReLU) in K7; in the bf16 rung its ReLU
+    stays fused before the conversion to bf16, with which it commutes.
 
 Both: the classifier in K1 (ops.gemm), int32 epilogue, logits float32.  The
-glue -- the input pack, the pack of an int32 carry for the next conv, the
-aligned wrapping residual add, ReLU and the shift-sum average pool -- is
-plain torch on the same device.
+glue -- the input pack, the pack of a carry for the next conv, the
+conversions of the relaxed rungs, the aligned wrapping residual add (or the
+bf16 add), ReLU and the average pool (shift-sum; an f32 sum of bf16 values
+in the bf16 rung) -- is plain torch on the same device.
 
-The strict contract is the reference's: block boundaries carry exact int32
-accumulators, and results are bit-equal to the JAX engine's
-`IntEngine(int_only=True)`, whichever route that engine takes.
+Each rung's results are the JAX engine's `IntEngine(int_only=True)` with the
+same rung's flag, bit for bit, whichever route that engine takes -- in the
+bf16 rung up to the average pool, whose f32 sum may take its terms in
+another order than XLA's, and with every bf16 value rounded where the
+reference's code rounds it (XLA may otherwise keep a fused bf16 value in
+float32: its `xla_allow_excess_precision`).
 """
 
 from __future__ import annotations
@@ -61,17 +91,19 @@ from ..ops import gemm as _gemm
 from ..ops import gemm_v2 as _gemm_v2
 from ..ops import ir_block as _ir
 from ..ops import stem as _stem
-from ..ops.fxp import INT32_MAX, fix_quant, shift_requant, wrap_i32
+from ..ops.fxp import INT32_MAX, fix_quant, pack_real, shift_requant, to_real_bf16, wrap_i32
 from ..utils.device import resolve_device
 
 
 class IAct(NamedTuple):
-    """Integer activation: int32 at fraclen `fl`, or an int8 operand already
-    packed (requantized, unsigned stored as u - 128) for conv `packed_for`."""
+    """Activation at fraclen `fl`: int32, an int8 operand already packed
+    (requantized, unsigned stored as u - 128) for conv `packed_for`, or
+    (`scaled`, bf16 rung) its real value in bf16."""
 
     x: torch.Tensor
     fl: int
     packed_for: Optional[str] = None
+    scaled: bool = False
 
 
 def add_zero_point_bias(graph, plan, int_params):
@@ -123,12 +155,17 @@ def fuses_ir(graph, meta) -> bool:
 
 
 class IntEngine:
-    """Strict integer inference engine bound to a plan and its int params.
+    """Integer inference engine bound to a plan and its int params.
 
     device: where the engine runs; "cuda" (the default) raises when there is
-    no card."""
+    no card.  int8_boundary / bf16_boundary: the relaxed rung (at most one);
+    neither is the strict rung."""
 
-    def __init__(self, model, plan, int_params, cfg=None, device="cuda"):
+    def __init__(self, model, plan, int_params, cfg=None, device="cuda",
+                 int8_boundary: bool = False, bf16_boundary: bool = False):
+        if int8_boundary and bf16_boundary:
+            raise ValueError("int8_boundary and bf16_boundary exclude each other")
+        self.int8_boundary, self.bf16_boundary = int8_boundary, bf16_boundary
         self.device = resolve_device(device)
         if not (model.name.startswith("resnet") or model.name == "mobilenet_v2"):
             raise NotImplementedError(
@@ -197,22 +234,51 @@ class IntEngine:
     # -- glue --------------------------------------------------------------
 
     def pack_for(self, act: IAct, name: str) -> IAct:
-        """Requantize an int32 activation to `name`'s 8-bit input format and
-        pack it (s8 = u8 - 128 for unsigned inputs); `int_engine.py:467-502`
-        in its strict form."""
+        """Requantize an activation to `name`'s 8-bit input format and pack
+        it (s8 = u8 - 128 for unsigned inputs); `int_engine.py:440-502`.  An
+        operand packed for another conv (int8 rung: a carry feeding body.0
+        and a shortcut) is reused when the two grids coincide, else widened
+        and requantized; a bf16 value is quantized straight onto the grid."""
         if act.packed_for is not None:
-            if act.packed_for != name:
+            if act.packed_for == name:
+                return act
+            if not self.int8_boundary:
                 raise ValueError(f"operand packed for {act.packed_for}, not {name}")
-            return act
+            src, pl = self.plan[act.packed_for], self.plan[name]
+            if (src.input_fl, src.input_symmetric) == (pl.input_fl, pl.input_symmetric):
+                return IAct(act.x, act.fl, packed_for=name)
+            return self.pack_for(self._widen(act), name)
         pl = self.plan[name]
+        if act.scaled:
+            return IAct(pack_real(act.x, pl.input_fl, pl.input_symmetric), pl.input_fl,
+                        packed_for=name)
         v = shift_requant(act.x, 8, pl.input_fl, act.fl, pl.input_symmetric)
         v8 = (v if pl.input_symmetric else v - 128).to(torch.int8)
         return IAct(v8, pl.input_fl, packed_for=name)
 
-    @staticmethod
-    def add_int(res: IAct, x: IAct) -> IAct:
-        """Shift the lower-fraclen operand onto the common grid, add with
-        int32 wraparound, clip to +-INT32_MAX (`int_engine.py:833-860`)."""
+    def _widen(self, act: IAct) -> IAct:
+        """A packed operand -> its int32 grid value, exactly (u - 128 + 128
+        on an unsigned grid); `int_engine.py:504-514`."""
+        v = act.x.to(torch.int32)
+        if not self.plan[act.packed_for].input_symmetric:
+            v = v + 128
+        return IAct(v, act.fl)
+
+    def add_int(self, res: IAct, x: IAct) -> IAct:
+        """Residual add (`int_engine.py:833-860`).  int32: packed carries
+        widened first, the lower-fraclen operand shifted onto the common
+        grid, the add wrapping in int32, a clip to +-INT32_MAX.  bf16 rung:
+        both real values, added in float32 and rounded once to bf16 (what
+        XLA's and torch's bf16 adds compute)."""
+        if res.scaled or x.scaled:
+            if not (res.scaled and x.scaled):
+                raise ValueError("a bf16 value added to an integer one")
+            s = (res.x.to(torch.float32) + x.x.to(torch.float32)).to(torch.bfloat16)
+            return IAct(s, max(res.fl, x.fl), scaled=True)
+        if res.packed_for is not None:
+            res = self._widen(res)
+        if x.packed_for is not None:
+            x = self._widen(x)
         r, v = res.x.to(torch.int64), x.x.to(torch.int64)
         if res.fl >= x.fl:
             v = wrap_i32(v << (res.fl - x.fl)).to(torch.int64)
@@ -224,7 +290,7 @@ class IntEngine:
 
     @staticmethod
     def relu_i32(act: IAct) -> IAct:
-        return IAct(act.x.clamp_min(0), act.fl)
+        return IAct(act.x.clamp_min(0), act.fl, scaled=act.scaled)
 
     # -- layers ------------------------------------------------------------
 
@@ -245,11 +311,17 @@ class IntEngine:
         return (v - zp).to(torch.int8)
 
     def head(self, x: torch.Tensor) -> IAct:
-        """Wire input -> pooled int32 stem activation through K3
-        (`int_engine.py:1290-1337`)."""
+        """Wire input -> pooled stem activation through K3
+        (`int_engine.py:1290-1356`): int32, or after the pool packed for
+        stage 0's first conv (int8 rung) or converted to bf16 (bf16 rung);
+        see the module docstring for why that equals the reference's
+        conversion before the pool."""
         b, pad = self._bias_pad("head")
         pooled = self._stemk(self._wire_operand(x), self._stem_w, b, pad_value=pad)
-        return IAct(pooled, self.plan["head"].out_fl)
+        a = IAct(pooled, self.plan["head"].out_fl)
+        if self.int8_boundary:
+            return self.pack_for(a, self.model.blocks[0].body[0])
+        return self._emit(a)
 
     def head_conv(self, x: torch.Tensor, pack_output_for: Optional[str]) -> IAct:
         """Wire input -> MobileNetV2 head through K2 with its input channels
@@ -296,18 +368,31 @@ class IntEngine:
             k = self._dwk if spec.is_depthwise else self._convk
             y = k(x8, w, b, **kw, **epi)
         if pack_output_for is None:
-            return IAct(y, pl.out_fl)
+            return self._emit(IAct(y, pl.out_fl))
         return IAct(y, self.plan[pack_output_for].input_fl, packed_for=pack_output_for)
 
-    def block(self, meta, a: IAct) -> IAct:
+    def _emit(self, a: IAct) -> IAct:
+        """An int32 output with no unique consumer conv: kept (strict and
+        int8 rungs) or converted to its bf16 real value (bf16 rung;
+        `_emit`, `int_engine.py:813-825`)."""
+        if self.bf16_boundary:
+            return IAct(to_real_bf16(a.x, a.fl), a.fl, scaled=True)
+        return a
+
+    def block(self, meta, a: IAct, pack_target: Optional[str] = None) -> IAct:
         """ResNet BasicBlock or Bottleneck (`_block_resnet_int`,
-        `int_engine.py:1054-1073`)."""
+        `int_engine.py:1054-1073`); in the int8 rung the output is packed
+        for `pack_target`, the next block's first conv (the last block's
+        stays int32 for the pool)."""
         v = a
         for prev, nxt in zip(meta.body[:-1], meta.body[1:]):
             v = self.conv_int(prev, v, pack_output_for=nxt)
         res = self.conv_int(meta.body[-1], v)
         s = a if meta.shortcut is None else self.conv_int(meta.shortcut, a)
-        return self.relu_i32(self.add_int(res, s))
+        out = self.relu_i32(self.add_int(res, s))
+        if self.int8_boundary and pack_target is not None:
+            return self.pack_for(out, pack_target)
+        return out
 
     def _ir_operands(self, meta):
         """(w1, b1, wd, bd, w2, b2) of a fused block in K5's layouts: the
@@ -323,11 +408,16 @@ class IntEngine:
         wd = self.params[dn]["w"].reshape(k, k, ce)
         return w1, self._bias_pad(en)[0], wd, self.params[dn]["b"], w2, self._bias_pad(pn)[0]
 
-    def fused_ir(self, meta, a: IAct, next_consumer: Optional[str]) -> IAct:
+    def fused_ir(self, meta, a: IAct, next_consumer: Optional[str],
+                 pack_target: Optional[str] = None) -> IAct:
         """A whole inverted-residual block through K5 (`try_fused_ir`,
-        `int_engine.py:862-1031`, strict form): a residual block adds the
-        int32 carry `a` on the common grid and ends in int32; any other ends
-        in requant8 packed for a unique consumer, else in int32."""
+        `int_engine.py:862-1031`).  A residual block adds the carry `a` on
+        the common grid: int32 (strict) or packed 1-byte, widened in K5 by
+        the offset of its grid (int8 rung), ending in int32 or, in the int8
+        rung, requant8 packed for `pack_target`; a bf16 carry (bf16 rung)
+        is added outside K5 to its bf16 output.  Any other block ends in
+        requant8 packed for a unique consumer, or for `pack_target` in the
+        int8 rung, else in bf16 (bf16 rung) or int32."""
         en, dn, pn = meta.body
         ple, pld, plp = self.plan[en], self.plan[dn], self.plan[pn]
         ap = self.pack_for(a, en)
@@ -336,63 +426,94 @@ class IntEngine:
             net2=pld.out_fl - plp.input_fl, proj_in_signed=plp.input_symmetric,
         )
         ops = self._fused[en]
+
+        def requant8_for(name, y_fl, *carry, **ckw):
+            cons = self.plan[name]
+            y8 = self._irk(ap.x, *ops, *carry, out="requant8", net_out=y_fl - cons.input_fl,
+                           out_signed=cons.input_symmetric, **ckw, **kw)
+            return IAct(y8, cons.input_fl, packed_for=name)
+
         if meta.residual:
+            if a.scaled:
+                y = self._irk(ap.x, *ops, out="bf16", out_fl=plp.out_fl, **kw)
+                return self.add_int(IAct(y, plp.out_fl, scaled=True), a)
+            offset = 0
+            if a.packed_for is not None:  # a 1-byte carry on its grid
+                offset = 0 if self.plan[a.packed_for].input_symmetric else 128
             rf, vf = plp.out_fl, a.fl
-            y = self._irk(
-                ap.x, *ops, a.x, out="int32", shift_res=max(vf - rf, 0),
-                shift_carry=max(rf - vf, 0), **kw,
-            )
-            return IAct(y, max(rf, vf))
+            ckw = dict(shift_res=max(vf - rf, 0), shift_carry=max(rf - vf, 0),
+                       carry_add_offset=offset)
+            if self.int8_boundary and pack_target is not None:
+                return requant8_for(pack_target, max(rf, vf), a.x, **ckw)
+            return IAct(self._irk(ap.x, *ops, a.x, out="int32", **ckw, **kw), max(rf, vf))
+        if next_consumer is None and self.int8_boundary and pack_target is not None:
+            next_consumer = pack_target
         if next_consumer is not None:
-            cons = self.plan[next_consumer]
-            y8 = self._irk(
-                ap.x, *ops, out="requant8", net_out=plp.out_fl - cons.input_fl,
-                out_signed=cons.input_symmetric, **kw,
-            )
-            return IAct(y8, cons.input_fl, packed_for=next_consumer)
+            return requant8_for(next_consumer, plp.out_fl)
+        if self.bf16_boundary:
+            y = self._irk(ap.x, *ops, out="bf16", out_fl=plp.out_fl, **kw)
+            return IAct(y, plp.out_fl, scaled=True)
         return IAct(self._irk(ap.x, *ops, out="int32", **kw), plp.out_fl)
 
-    def block_mbv2(self, meta, a: IAct, next_consumer: Optional[str]) -> IAct:
+    def block_mbv2(self, meta, a: IAct, next_consumer: Optional[str],
+                   pack_target: Optional[str] = None) -> IAct:
         """Inverted residual (`_block_mbv2_int`, `int_engine.py:1112-1136`):
         whole in K5 where the structure allows, else layer by layer with
-        fused requant8 edges; residual blocks keep int32 ends for the
-        aligned add, and there is no post-add ReLU."""
+        fused requant8 edges; residual blocks keep int32 (bf16) ends for
+        the aligned add, and there is no post-add ReLU.  In the int8 rung a
+        block output that is not packed for a unique consumer is packed for
+        `pack_target`, the next block's first conv or the tail."""
         if meta.body[0] in self._fused:
-            return self.fused_ir(meta, a, next_consumer)
+            return self.fused_ir(meta, a, next_consumer, pack_target)
         v = a
         for prev, nxt in zip(meta.body[:-1], meta.body[1:]):
             v = self.conv_int(prev, v, pack_output_for=nxt)
         if meta.residual:
-            return self.add_int(self.conv_int(meta.body[-1], v), a)
+            out = self.add_int(self.conv_int(meta.body[-1], v), a)
+            if self.int8_boundary and pack_target is not None:
+                out = self.pack_for(out, pack_target)
+            return out
+        if next_consumer is None and self.int8_boundary:
+            next_consumer = pack_target
         return self.conv_int(meta.body[-1], v, pack_output_for=next_consumer)
 
     def features_mbv2(self, x: torch.Tensor) -> IAct:
         """Head, blocks and tail (`int_engine.py:1367-1381`): a block's
         output is packed for the next block's first conv unless that block
-        is residual (then it is the int32 carry); the last block's is packed
-        for the tail, whose ReLU is fused into K1."""
+        is residual (then it is the carry: int32, bf16, or in the int8 rung
+        packed for that conv all the same); the last block's is packed for
+        the tail, whose ReLU is fused into K7."""
         blocks = self.model.blocks
         consumers = [None if nxt.residual else nxt.body[0] for nxt in blocks[1:]] + ["tail"]
+        ptargets = [nxt.body[0] for nxt in blocks[1:]] + ["tail"]
         a = self.head_conv(x, None if blocks[0].residual else blocks[0].body[0])
-        for meta, nxt in zip(blocks, consumers):
-            a = self.block_mbv2(meta, a, nxt)
+        for meta, nxt, pt in zip(blocks, consumers, ptargets):
+            a = self.block_mbv2(meta, a, nxt, pt)
         return self.conv_int("tail", a, relu=True)
 
     def avgpool(self, a: IAct) -> IAct:
-        """Global average pool (`int_engine.py:1385-1414`): the shift-sum
-        with an int32 (wrapping) sum under quant_avgpool, else the
-        reference's float mean requantized to the classifier's grid."""
+        """Global average pool (`int_engine.py:1383-1415`): the shift-sum
+        with an int32 (wrapping) sum under quant_avgpool -- for a bf16 value
+        an f32 sum times 2^-shift, rounded to bf16 -- else the reference's
+        float mean (of the real value, or of the integers / 2^fl)
+        requantized to the classifier's grid."""
         if self.cfg.quant_avgpool:
             shift = avgpool_shift_for(self.model.pool_kernel)
+            if a.scaled:
+                s = a.x.to(torch.float32).sum((1, 2)) * float(2.0**-shift)
+                return IAct(s.to(torch.bfloat16), a.fl + shift, scaled=True)
             return IAct(wrap_i32(a.x.sum((1, 2), dtype=torch.int64)), a.fl + shift)
-        m = a.x.to(torch.float32).mean((1, 2)) / 2.0**a.fl
+        m = a.x.to(torch.float32).mean((1, 2))
+        if not a.scaled:
+            m = m / 2.0**a.fl
         pl = self.plan["classifier"]
         q, _ = fix_quant(m, 8, float(pl.input_fl), 1, pl.input_symmetric)
         return IAct(torch.round(q * 2.0**pl.input_fl).to(torch.int32), pl.input_fl)
 
     def classifier(self, a: IAct) -> torch.Tensor:
         """int8 classifier GEMM through K1, int32 epilogue, float32 logits
-        (`_classifier_int`, `int_engine.py:1151-1173`)."""
+        (`_classifier_int`, `int_engine.py:1151-1173`); a bf16 input is
+        quantized onto its grid by pack_for."""
         a = self.pack_for(a, "classifier")
         p = self.params["classifier"]
         b = p.get("b") if self.plan["classifier"].input_symmetric else p["b_zp"]
@@ -406,7 +527,8 @@ class IntEngine:
         if self.model.name == "mobilenet_v2":
             a = self.features_mbv2(x)
         else:
+            blocks = self.model.blocks
             a = self.head(x)
-            for meta in self.model.blocks:
-                a = self.block(meta, a)
+            for meta, pt in zip(blocks, [m.body[0] for m in blocks[1:]] + [None]):
+                a = self.block(meta, a, pt)
         return self.classifier(self.avgpool(a))

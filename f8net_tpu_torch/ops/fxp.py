@@ -1,6 +1,9 @@
 """Fixed-point primitives of the integer engine (the port of
 `f8net_tpu/ops/fxp.py`: `fix_quant` forward at `:52-85`, `shift_requant`
-integer form at `:112-155`).
+integer form at `:112-155`), and the two conversions of the relaxed
+boundary rungs between an int32 accumulator or an 8-bit operand and a bf16
+real value (`f8net_tpu/engine/int_engine.py`: `_emit` `:817-821`,
+`pack_for`'s scaled branch `:469-479`).
 
 Numerical contract, bit for bit with the JAX package:
   * rounding is round-half-to-even everywhere (torch.round and jnp.round are
@@ -96,3 +99,24 @@ def fix_quant(x: torch.Tensor, wl: int = 8, fl=0, axis: int = 0, signed: bool = 
         mask = (res > 0) & (res < bound)
         res = res.clamp(0.0, bound)
     return res / scale, mask
+
+
+def to_real_bf16(y: torch.Tensor, fl: int) -> torch.Tensor:
+    """int32 accumulator at fraclen `fl` -> its real value in bfloat16:
+    int32 -> float32 (round to nearest even), times 2^-fl (exact), then
+    float32 -> bfloat16 (round to nearest even).  Rounding twice is the
+    contract (the reference's astype(float32) ... astype(bfloat16)): for
+    |y| >= 2^24 it can differ from one rounding straight to bfloat16, as at
+    y = 2^24 + 2^16 + 1."""
+    return (y.to(torch.float32) * float(2.0**-fl)).to(torch.bfloat16)
+
+
+def pack_real(x: torch.Tensor, fl: int, signed: bool) -> torch.Tensor:
+    """A bf16 real value -> the packed 8-bit operand of a conv whose input
+    grid has fraclen `fl`: float32, times 2^fl, round half to even, clamp to
+    -127..127 (signed) or 0..255 then store u - 128 (unsigned; the clamp
+    absorbs a ReLU), int8."""
+    v = torch.round(x.to(torch.float32) * float(2.0**fl))
+    if signed:
+        return v.clamp(-127, 127).to(torch.int8)
+    return (v.clamp(0, 255) - 128).to(torch.int8)

@@ -3,9 +3,11 @@
 
     python3 probe_plans.py [--batch 8] [--seed 0]
 
-For each distinct K5 call of MobileNetV2 (224 px) and each K7 call shape of
-ResNet-50, at the given batch, on random inputs made from the seed: device
-ms per call (torch.profiler's kernel time over 10 launches) of
+For each distinct K5 call of MobileNetV2 (224 px) in the form each engine
+rung gives it (strict: int32 carry and output; int8-boundary: 1-byte carry,
+requant8 output; bf16-boundary: bf16 output, no carry), and each K7 call
+shape of ResNet-50, at the given batch, on random inputs made from the
+seed: device ms per call (torch.profiler's kernel time over 10 launches) of
 the kernel under each candidate plan -- K5: band heights x Ce splits whose
 layout fits; K7: both tile widths, unsplit and split 2-8 ways -- each
 output checked bitwise against the planner's own plan's; K7 also beside K1
@@ -27,7 +29,7 @@ from f8net_tpu_torch.ops import gemm as gemm_ops
 from f8net_tpu_torch.ops import gemm_v2 as gemm_v2_ops
 from f8net_tpu_torch.ops import ir_block as ir_ops
 
-# (h, w, cin, ce, cout, carry) of MobileNetV2's K5 calls at 224 px, and
+# (h, w, cin, ce, cout, residual) of MobileNetV2's K5 calls at 224 px, and
 # how many times each runs per forward
 K5_SHAPES = [
     ((56, 56, 24, 144, 24, True), 1), ((28, 28, 32, 192, 32, True), 2),
@@ -53,7 +55,16 @@ MBV2_K1_SHAPES = [
 ]
 
 
-def k5_plans(n, h, w, cin, ce, cout, k):
+# the K5 form of a residual and of another block's call in each rung:
+# (carry dtype or None, output)
+K5_FORMS = {
+    "strict": ((torch.int32, "int32"), (None, "requant8")),
+    "int8": ((torch.int8, "requant8"), (None, "requant8")),
+    "bf16": ((None, "bf16"), (None, "bf16")),
+}
+
+
+def k5_plans(n, h, w, cin, ce, cout, k, carry_bytes):
     units = -(-ce // 32)
     for th in sorted({1, 2, 3, 4, 6, 8, -(-h // 2), h}):
         if th > h:
@@ -62,7 +73,7 @@ def k5_plans(n, h, w, cin, ce, cout, k):
             su = -(-units // s)
             if -(-units // su) != s:
                 continue
-            plan = ir_ops._layout(h, w, cin, ce, cout, k, th, s, 32 * su)
+            plan = ir_ops._layout(h, w, cin, ce, cout, k, th, s, 32 * su, carry_bytes)
             if plan.total <= ir_ops.SMEM_LIMIT:
                 yield plan
 
@@ -98,30 +109,39 @@ def main(argv=None) -> int:
     def ints(shape, lo, hi, dtype=np.int8):
         return torch.from_numpy(rng.randint(lo, hi, shape).astype(dtype)).to(dev)
 
-    print(f"K5 plans, batch {n} ({card}): h x w | cin | ce | cout | calls | band rows | bands "
-          f"| splits x channels | blocks | smem | ms", flush=True)
-    for (h, w, cin, ce, cout, carry), calls in K5_SHAPES:
-        x = ints((n, h, w, cin), -128, 128)
-        w1 = gemm_v2_ops.pack_gemm_weight(ints((cin, ce), -40, 41))
-        w2 = gemm_v2_ops.pack_gemm_weight(ints((ce, cout), -40, 41))
-        wd = ints((3, 3, ce), -127, 128)
-        b1, bd, b2 = (ints((c,), -(1 << 14), 1 << 14, np.int32) for c in (ce, ce, cout))
-        c = ints((n, h, w, cout), -(1 << 20), 1 << 20, np.int32) if carry else None
-        kw = dict(net1=8, net2=13, out="int32" if carry else "requant8", net_out=9,
-                  shift_res=1 if carry else 0)
-        chosen = ir_ops.plan_ir(n, h, w, cin, ce, cout, 3, sms)
-        want = ir_ops.fused_ir_block(x, w1, b1, wd, bd, w2, b2, c, **kw)
-        for plan in k5_plans(n, h, w, cin, ce, cout, 3):
-            def run(plan=plan):
-                return ir_ops.fused_ir_block(x, w1, b1, wd, bd, w2, b2, c, plan=plan, **kw)
+    print(f"K5 plans, batch {n} ({card}): rung | h x w | cin | ce | cout | carry | out | calls "
+          f"| band rows | bands | splits x channels | blocks | smem | ms", flush=True)
+    for rung, forms in K5_FORMS.items():
+        for (h, w, cin, ce, cout, residual), calls in K5_SHAPES:
+            cdt, out = forms[0] if residual else forms[1]
+            x = ints((n, h, w, cin), -128, 128)
+            w1 = gemm_v2_ops.pack_gemm_weight(ints((cin, ce), -40, 41))
+            w2 = gemm_v2_ops.pack_gemm_weight(ints((ce, cout), -40, 41))
+            wd = ints((3, 3, ce), -127, 128)
+            b1, bd, b2 = (ints((c,), -(1 << 14), 1 << 14, np.int32) for c in (ce, ce, cout))
+            c = None
+            if cdt == torch.int32:
+                c = ints((n, h, w, cout), -(1 << 20), 1 << 20, np.int32)
+            elif cdt == torch.int8:
+                c = ints((n, h, w, cout), -128, 128)
+            kw = dict(net1=8, net2=13, out=out, net_out=9, out_fl=14,
+                      shift_res=1 if c is not None else 0,
+                      carry_add_offset=128 if cdt == torch.int8 else 0)
+            cb, ob = ir_ops.call_bytes(c, out)
+            chosen = ir_ops.plan_ir(n, h, w, cin, ce, cout, 3, sms, cb, ob)
+            want = ir_ops.fused_ir_block(x, w1, b1, wd, bd, w2, b2, c, **kw)
+            for plan in k5_plans(n, h, w, cin, ce, cout, 3, cb):
+                def run(plan=plan):
+                    return ir_ops.fused_ir_block(x, w1, b1, wd, bd, w2, b2, c, plan=plan, **kw)
 
-            if not torch.equal(run(), want):
-                raise AssertionError(f"K5 {h}x{w} x {ce}: plan {plan} differs")
-            ms = chip_smoke.device_ms(run)[0]
-            mark = "*" if plan == chosen else " "
-            print(f"{mark} K5 | {h}x{w} | {cin} | {ce} | {cout} | {calls} | {plan.th} | "
-                  f"{plan.bands} | {plan.splits} x {plan.cs} | {n * plan.bands * plan.splits} | "
-                  f"{plan.total} | {ms:.4f}", flush=True)
+                if not torch.equal(run(), want):
+                    raise AssertionError(f"K5 {rung} {h}x{w} x {ce}: plan {plan} differs")
+                ms = chip_smoke.device_ms(run)[0]
+                mark = "*" if plan == chosen else " "
+                cname = "none" if cdt is None else str(cdt).split(".")[-1]
+                print(f"{mark} K5 | {rung} | {h}x{w} | {cin} | {ce} | {cout} | {cname} | {out} "
+                      f"| {calls} | {plan.th} | {plan.bands} | {plan.splits} x {plan.cs} | "
+                      f"{n * plan.bands * plan.splits} | {plan.total} | {ms:.4f}", flush=True)
 
     print(f"K7 plans, batch {n} ({card}): M | K | N | epilogue | tile | split | blocks | ms "
           f"| K1 ms | _int_mm ms", flush=True)

@@ -21,7 +21,11 @@ K = 2048 with M tails, at M = 25088, under forced plans (both tile widths,
 clusters of 2 and 8, persistent grids smaller than the tile count), with
 plain and packed weights, K6 on every row of 7x7 and 56x56 rasters with the ring masked and
 not, negative shifts, ReLU, and biases that make the int32 epilogue and the
-K5 carry add wrap.  Every comparison is bitwise.
+K5 carry add wrap; K5's boundary-rung forms (1-byte carry with offsets 0
+and 128, bf16 output) under every plan its planner weighs at MobileNetV2's
+shapes, at couts whose 1-byte carry rows are 4- and 8-byte aligned, at
+2^24 + 2^16 + 1 (rounded twice to bf16), and the forms its wrapper refuses;
+and the engine's three rungs at 64 px.  Every comparison is bitwise.
 """
 
 import numpy as np
@@ -343,6 +347,119 @@ def test_fused_ir_block_plans_vs_plain(dev, n, h, w, cin, ce, cout, k, th, split
     assert torch.equal(got.cpu(), fused_ir_block_plain(x, w1, b1, wd, bd, w2, b2, c, **kw))
 
 
+# MobileNetV2's seven distinct K5 shapes (its twelve calls), (h, w, cin, ce, cout)
+MBV2_IR_SHAPES = [
+    (56, 56, 24, 144, 24), (28, 28, 32, 192, 32), (14, 14, 64, 384, 64),
+    (14, 14, 64, 384, 96), (14, 14, 96, 576, 96), (7, 7, 160, 960, 160),
+    (7, 7, 160, 960, 320),
+]
+# the boundary rungs' forms: (carry, carry_add_offset, out, net_out, out_signed, out_fl)
+IR_RUNG_FORMS = [
+    ("int8", 128, "requant8", 11, False, 0),  # int8 rung, residual block
+    ("int8", 0, "int32", 0, False, 0),
+    (None, 0, "bf16", 0, False, 14),  # bf16 rung
+    ("int32", 0, "bf16", 0, False, 12),
+]
+
+
+def _ir_rung_args(rng, n, h, w, cin, ce, cout, carry, wrap=True):
+    x = _int8(rng, (n, h, w, cin))
+    w1, wd = _int8(rng, (cin, ce), -40, 41), _int8(rng, (3, 3, ce), -127)
+    w2 = _int8(rng, (ce, cout), -40, 41)
+    b1, bd, b2 = _bias(rng, ce, False), _bias(rng, ce, False), _bias(rng, cout, wrap)
+    c = None
+    if carry == "int8":
+        c = _int8(rng, (n, h, w, cout))
+        c[..., ::5] = 127  # (127 + 128) << shift_carry near the int32 range
+    elif carry == "int32":
+        c = torch.from_numpy(rng.randint(-(1 << 20), 1 << 20, (n, h, w, cout)).astype(np.int32))
+    return (x, w1, b1, wd, bd, w2, b2, c)
+
+
+@pytest.mark.parametrize("h,w,cin,ce,cout", MBV2_IR_SHAPES)
+def test_fused_ir_block_rung_forms_every_plan(dev, h, w, cin, ce, cout):
+    """K5's 1-byte carry and bf16 output under every plan plan_ir weighs
+    (ops.ir_block.ir_candidates) at MobileNetV2's K5 shapes, batch 2, each
+    against the plain version; the planner's own pick among them."""
+    from f8net_tpu_torch.ops.ir_block import call_bytes, ir_candidates, plan_ir
+
+    rng = np.random.RandomState(h + cin + cout)
+    for carry, offset, out, net_out, out_signed, out_fl in IR_RUNG_FORMS:
+        args = _ir_rung_args(rng, 2, h, w, cin, ce, cout, carry)
+        kw = dict(net1=8, dw_in_signed=False, net2=13, proj_in_signed=False, out=out,
+                  net_out=net_out, out_signed=out_signed, out_fl=out_fl, shift_res=1,
+                  shift_carry=21 if carry == "int8" else 0, carry_add_offset=offset)
+        want = fused_ir_block_plain(*args, **kw)
+        da = [None if a is None else a.to(dev) for a in args]
+        da[1], da[5] = pack_gemm_weight(da[1]), pack_gemm_weight(da[5])
+        cb, ob = call_bytes(args[7], out)
+        plans = list(ir_candidates(h, w, cin, ce, cout, 3, cb))
+        assert plan_ir(2, h, w, cin, ce, cout, 3, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count, cb, ob) in plans
+        for plan in plans:
+            got = fused_ir_block(*da, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got.cpu(), want), (carry, out, plan)
+        assert torch.equal(fused_ir_block(*da, **kw).cpu(), want)
+
+
+@pytest.mark.parametrize("cout", [24, 12, 40, 32])
+def test_fused_ir_block_byte_carry_alignment(dev, cout):
+    """A block's 1-byte carry rows start at element (pix0 + rlo) * cout:
+    8-byte aligned at best for cout = 24 and 40, 4-byte for cout = 12,
+    16-byte for 32; under plans that split the band's pixels across 1-8
+    blocks at odd offsets, every form is the plain version's."""
+    from f8net_tpu_torch.ops.ir_block import ir_candidates
+
+    rng = np.random.RandomState(cout)
+    n, h, w, cin, ce = 3, 9, 7, 24, 200
+    for carry, offset, out, net_out, out_signed, out_fl in IR_RUNG_FORMS[:3]:
+        args = _ir_rung_args(rng, n, h, w, cin, ce, cout, carry)
+        kw = dict(net1=8, net2=13, out=out, net_out=net_out, out_signed=out_signed,
+                  out_fl=out_fl, shift_res=2, shift_carry=20 if carry else 0,
+                  carry_add_offset=offset)
+        want = fused_ir_block_plain(*args, **kw)
+        da = [None if a is None else a.to(dev) for a in args]
+        for plan in ir_candidates(h, w, cin, ce, cout, 3, 1 if carry == "int8" else 0):
+            got = fused_ir_block(*da, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (cout, carry, plan)
+
+
+def test_fused_ir_block_bf16_rounds_twice(dev):
+    """y = +-(2^24 + 2^16 + 1) (zero project weights, the bias alone): the
+    kernel's bf16 output is +-2^24, int32 -> float32 -> bf16, as the plain
+    version and the reference round; one rounding would give 2^24 + 2^17."""
+    rng = np.random.RandomState(5)
+    args = list(_ir_rung_args(rng, 2, 6, 6, 32, 64, 16, None, wrap=False))
+    args[5] = torch.zeros_like(args[5])
+    v = 16842753
+    args[6] = torch.tensor([v, -v] * 8, dtype=torch.int32)
+    kw = dict(net1=8, net2=13, out="bf16", out_fl=0)
+    got = fused_ir_block(*(None if a is None else a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    want = fused_ir_block_plain(*args, **kw)
+    assert torch.equal(got.cpu(), want)
+    assert got[0, 0, 0, :2].float().tolist() == [2.0**24, -(2.0**24)]
+
+
+def test_fused_ir_block_raises_on_forms_it_does_not_take(dev):
+    rng = np.random.RandomState(6)
+    args = [a.to(dev) for a in _ir_rung_args(rng, 1, 8, 8, 24, 48, 24, "int8")]
+    base, c = args[:7], args[7]
+    with pytest.raises(ValueError, match="carry: int32 or int8"):
+        fused_ir_block(*base, c.to(torch.int16))
+    with pytest.raises(ValueError, match="carry_add_offset"):
+        fused_ir_block(*base, c, carry_add_offset=64)
+    with pytest.raises(ValueError, match="carry_add_offset"):
+        fused_ir_block(*base, carry_add_offset=128)
+    with pytest.raises(ValueError, match="unknown output"):
+        fused_ir_block(*base, c, out="fp16")
+    with pytest.raises(ValueError, match="alignment"):
+        buf = torch.zeros(c.numel() + 8, dtype=torch.int8, device=dev)
+        fused_ir_block(*base, buf[8:].view(c.shape))
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: a shape the
     kernel does not take is refused, never handed to the plain version."""
@@ -474,3 +591,28 @@ def test_engine_kernels_bitwise_equal_plain(dev, path):
     logits, ref, counts, _, _ = chip_smoke.engine_phase(eng, eng.condition_input(images))
     chip_smoke.check_logits(logits, ref, 2, 10)
     assert counts == chip_smoke.expected_launches(path)
+
+
+@pytest.mark.parametrize("rung", ["int8_boundary", "bf16_boundary"])
+@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50"])
+def test_engine_rungs_bitwise_equal_plain(dev, path, rung):
+    """Each main path's relaxed rungs at 64 px through the kernels and
+    through the plain versions, on the card: the strict rung's launches per
+    forward, equal logits; MobileNetV2's K5 runs its 1-byte-carry (int8
+    rung) or bf16 (bf16 rung) form."""
+    import chip_smoke
+    from f8net_tpu_torch.engine import IntEngine
+
+    images = torch.from_numpy(np.random.RandomState(2).rand(2, 64, 64, 3).astype(np.float32))
+    model, plan, params, _ = chip_smoke.load_synthetic_model(
+        2, 64, 10, dev, images.to(dev), model_name=path
+    )
+    eng = IntEngine(model, plan, params, device=dev, **{rung: True})
+    logits, ref, counts, calls, _ = chip_smoke.engine_phase(eng, eng.condition_input(images))
+    chip_smoke.check_logits(logits, ref, 2, 10)
+    assert counts == chip_smoke.expected_launches(path)
+    outs = {kw["out"] for name, _, kw in calls if name == "ir_block"}
+    carries = {chip_smoke.k5_carry(a) for name, a, _ in calls if name == "ir_block"}
+    if path == "mobilenet_v2":
+        assert ("bf16" in outs) == (rung == "bf16_boundary")
+        assert ("int8" in carries) == (rung == "int8_boundary")

@@ -137,3 +137,22 @@ def test_port_bundle_loads_in_jax(baked, tmp_path):
     for name, entry in ip.items():
         for key, arr in entry.items():
             np.testing.assert_array_equal(np.asarray(jparams[name][key]), np.asarray(arr))
+
+
+@pytest.mark.parametrize("h,w", [(36, 36), (40, 40), (32, 48)])
+def test_logits_bitwise_other_input_sizes_float_mean_pool(baked, h, w):
+    """Inputs whose side is not a multiple of 8, or that are not square:
+    the JAX engine runs its stem in XLA there, the port in K3 as at every
+    size.  Under the float-mean pool the logits are bitwise (the final maps
+    are 2x2 and 1x2: sums of at most 4 integers, exact in float32).  The
+    shift-sum pool (quant_avgpool) cannot take these sizes: the JAX model's
+    `fxq_avgpool` raises when the pool's extent differs from the built
+    image_size // 32."""
+    model, plan, ip, _, _, _ = baked["float_pool"]
+    x = (np.round(255 * np.random.RandomState(h + w).rand(2, h, w, 3)) / 256).astype(np.float32)
+    jeng = JaxIntEngine(model, plan, ip, int_only=True)
+    want = np.asarray(jeng(jeng.condition_input(jnp.asarray(x))))
+    eng = IntEngine(_port_model(*FLOAT_POOL, "float_pool"), *_port_params(plan, ip), device="cpu")
+    got = eng(eng.condition_input(x)).numpy()
+    assert not np.array_equal(want[0], want[1])
+    np.testing.assert_array_equal(got, want)

@@ -5,6 +5,7 @@ comparisons with the float network, the recorded kernel calls of one
 forward, and the non-degenerate activations the calibration promises."""
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -43,11 +44,12 @@ def test_smoke_phases_on_cpu():
 
 
 def test_smoke_mobilenet_v2_phases_on_cpu():
-    # MobileNetV2, 50 requants: 10 fused epilogues of the 5 per-layer blocks,
+    # MobileNetV2, 51 requants: 10 fused epilogues of the 5 per-layer blocks,
     # 15 packs of an int32 block output for the next block's first conv
     # (10 residual K5 blocks, 2 other K5 blocks, 3 stride-2 blocks), 1 for
-    # the classifier, and 2 inside each of the 12 K5 blocks
-    _rehearse("mobilenet_v2", 50)
+    # the classifier, 2 inside each of the 12 K5 blocks, and the requant8
+    # output of the one K5 block that packs for its unique consumer
+    _rehearse("mobilenet_v2", 51)
 
 
 def test_smoke_resnet50_phases_on_cpu():
@@ -86,3 +88,57 @@ def test_smoke_k7_and_flat_phases_on_cpu():
             ops2 = chip_smoke.work("conv_int8", args2, kw2, out2)[1]
             # a masked ring's rows need no taps: then K6 does K2's operations
             assert ops == ops2 if kw["mask_pad"] else ops > ops2
+
+
+# 8-bit operands the clamp and zero gates see per forward of each relaxed
+# rung at 64 px, where every shortcut reads the same grid as its block's
+# body.0 (so no repack):
+#   int8: ResNet-18 17 = 8 fused epilogues + the stem's pack + 7 block
+#   outputs packed for the next block + the classifier's pack; ResNet-50 49
+#   = 32 + 1 + 15 + 1; MobileNetV2 51 = 10 fused epilogues of the per-layer
+#   blocks + the 4 stride-2 blocks' outputs packed for the residual block
+#   after them + the classifier's pack + 2 inside each of the 12 K5 blocks +
+#   the 12 K5 outputs, all requant8 (10 of them packed carries);
+#   bf16: the strict rung's counts (ResNet-18 20, MobileNetV2 51, ResNet-50
+#   53), each pack of an int32 block output now a pack of a bf16 value.
+RUNG_REQUANTS = {
+    "resnet18": {"int8": 17, "bf16": 20},
+    "mobilenet_v2": {"int8": 51, "bf16": 51},
+    "resnet50": {"int8": 49, "bf16": 53},
+}
+
+
+@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50"])
+def test_smoke_rung_phases_on_cpu(path, capsys):
+    """chip_smoke.py's phases of the relaxed rungs on the CPU: each rung's
+    forward through the wrappers and through the plain versions (the same
+    code here), every recorded call against its plain version, the kernel
+    calls per forward of the strict table, the clamp and zero gates on
+    every 8-bit operand, K7 against K1, the distances to the strict and
+    float logits, and K5's new forms where MobileNetV2 calls it."""
+    images = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32))
+    model, plan, params, float_logits = chip_smoke.load_synthetic_model(
+        0, 64, 10, "cpu", images, model_name=path
+    )
+    eng = IntEngine(model, plan, params, device="cpu")
+    logits, counts, checked = chip_smoke.drive(path, path, eng, images)
+    strict = (eng, counts, checked, logits, float_logits)
+    for rung in chip_smoke.RUNGS:
+        reng, rcounts, rchecked = chip_smoke.check_rung(path, rung, strict, images)
+        assert getattr(reng, rung) and rcounts == {name: 0 for name in chip_smoke.KERNELS}
+        names = [c[0] for c in rchecked]
+        assert {n: names.count(n) for n in set(names)} == chip_smoke.LAUNCHES_PER_FORWARD[path]
+        assert all(err == 0 for *_, err in rchecked)
+        assert chip_smoke.k7_against_k1(rchecked) == chip_smoke.LAUNCHES_PER_FORWARD[path].get(
+            "int8_gemm_v2", 0)
+        forms = {(chip_smoke.k5_carry(a), kw["out"]) for n, a, kw, _, _ in rchecked
+                 if n == "ir_block"}
+        if path == "mobilenet_v2":
+            assert forms == ({("int8", "requant8"), ("none", "requant8")}
+                             if rung == "int8_boundary" else {("none", "bf16"), ("none", "requant8")})
+    out = capsys.readouterr().out
+    for rung in chip_smoke.RUNGS.values():
+        gated = [ln for ln in out.splitlines() if ln.startswith(f"  {path} {rung} requant -> ")]
+        assert len(gated) == RUNG_REQUANTS[path][rung], (rung, len(gated))
+        assert f"{path} {rung} engine: top-1 agreement with the strict rung" in out
+        assert f"{path} {rung} engine: top-1 agreement with the float network" in out
