@@ -36,20 +36,26 @@ from the seed:
            BasicBlocks as two-conv chains on the flat raster (ring masked),
            against its plain version on every row and against K2
   timing   device time (torch.profiler) of each kernel call, of its plain
-           version and, for K1 and K7, of torch._int_mm at the same shape (K7
-           also beside K1, K6 beside K2); K2 per shape with its tile and
-           split (ops/conv.py:plan_conv), K5 per call with its band height
-           and Ce split (ops/ir_block.py:plan_ir), K7 per shape with its
-           tile, split and grid (ops/gemm_v2.py:plan_gemm) beside K1 and
-           torch._int_mm; per path and rung, whole-forward images/s,
+           version and of one PyTorch call computing the same function where
+           there is one (K1 and K7: torch._int_mm; K4: F.conv2d in float32,
+           channels_last, groups=C, without the epilogue) at the same shape
+           (K7 also beside K1, K6 beside K2); K1 per call with its form and
+           plan (ops/gemm.py:plan_k1) beside the replaced design's recorded
+           time, K2 per shape with
+           its tile and split (ops/conv.py:plan_conv), K4 per call with its
+           tile (ops/dw.py:plan_dw) beside its bytes bound and its dp4a
+           issue floor (at an assumed rate), K5 per call with its band height and Ce split
+           (ops/ir_block.py:plan_ir), K7 per shape with its tile, split and
+           grid (ops/gemm_v2.py:plan_gemm) beside K1 and torch._int_mm; per
+           path and rung, whole-forward images/s,
            device-busy share, glue ms and device-time breakdown at batch 8
            and 64, beside the bf16 baseline's images/s (engine.baseline,
            cuDNN, fed (x / 256) in bf16 as bench.py does) and each rung's
            ratio to it
 
-The engine hands K2, K3, K5 and K7 the weights it packed at construction
-(PackedConvWeight, pack_stem_weight); the plain versions compute from the
-same packed layouts.
+The engine hands K1, K2, K3, K5 and K7 the weights it packed at
+construction (PackedK1Weight, PackedConvWeight, pack_stem_weight); the
+plain versions compute from the same packed layouts.
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -97,6 +103,28 @@ SIGNED_STD_COEFF = 40.0
 UNSIGNED_STD_COEFF = 70.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak, published
+# K4's dp4a issue floor: 32-bit integer multiply-adds issue at 64 per clock
+# per SM on sm_90 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput).  That table gives no rate for __dp4a: the floor assumes the
+# same one, and the K4 table says so
+INT_MAD_PER_CLOCK_PER_SM = 64
+# K1's and K4's device ms per call at batch 8 in the designs the present ones
+# replaced, as recorded (not measured by this run): this script at commit
+# 24d3ec5 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6),
+# strict forwards; keyed (kernel, x shape, weight shape, stride)
+PREV_MS = {
+    ("int8_gemm", (8, 512), (512, 1000), 1): 0.0106,
+    ("int8_gemm", (100352, 32), (32, 16), 1): 0.0128,
+    ("int8_gemm", (25088, 96), (96, 24), 1): 0.0059,
+    ("int8_gemm", (25088, 24), (24, 144), 1): 0.0196,
+    ("int8_gemm", (8, 1280), (1280, 1000), 1): 0.0224,
+    ("int8_gemm", (8, 2048), (2048, 1000), 1): 0.0366,
+    ("dw_int8", (8, 112, 112, 32), (3, 3, 1, 32), 1): 0.0143,
+    ("dw_int8", (8, 112, 112, 96), (3, 3, 1, 96), 2): 0.0119,
+    ("dw_int8", (8, 56, 56, 144), (3, 3, 1, 144), 2): 0.0069,
+    ("dw_int8", (8, 28, 28, 192), (3, 3, 1, 192), 2): 0.0055,
+    ("dw_int8", (8, 14, 14, 576), (3, 3, 1, 576), 2): 0.0057,
+}
 # every 8-bit operand a forward makes must clamp less and be zero less than
 # this often, or the synthetic calibration leaves the requant paths idle
 MAX_CLAMPED, MAX_ZERO = 0.05, 0.9
@@ -419,13 +447,15 @@ def check_logits(logits, logits_ref, batch, num_classes):
 # -- kernels and timing ---------------------------------------------------------
 
 
+PACKED = (conv_ops.PackedConvWeight, gemm_ops.PackedK1Weight)
+
+
 def nbytes(*ts) -> int:
-    """Bytes of the tensors; a packed weight (K2's, K5's, K7's) counts its
-    logical HWIO bytes (the function's input, not the kernel's padded
+    """Bytes of the tensors; a packed weight (K1's, K2's, K5's, K7's) counts
+    its logical bytes (the function's input, not the kernel's padded
     layout)."""
     return sum(
-        math.prod(t.shape) if isinstance(t, conv_ops.PackedConvWeight)
-        else t.numel() * t.element_size() for t in ts
+        math.prod(t.shape) if isinstance(t, PACKED) else t.numel() * t.element_size() for t in ts
     )
 
 
@@ -540,7 +570,7 @@ def compare(name, args, kw):
 
 
 def describe(args, kw) -> str:
-    shapes = "x".join(str(tuple(a.shape)) for a in args[:2])
+    shapes = "x".join(str(tuple(a.shape)) for a in args[:2])  # a packed weight: its logical shape
     if len(args) > 5:  # K5: input x w1 x wd x w2, carry (int32 or int8) or not
         shapes = "x".join(str(tuple(args[i].shape)) for i in (0, 1, 3, 5))
         shapes += f" carry {k5_carry(args)}" if k5_carry(args) != "none" else ""
@@ -868,7 +898,7 @@ def flat_phase(paths):
 
 
 def new_row(name):
-    has_library = name in ("int8_gemm", "int8_gemm_v2")
+    has_library = name in ("int8_gemm", "int8_gemm_v2", "dw_int8")
     return dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
                 library_ms=0.0 if has_library else None, by_path={})
 
@@ -965,6 +995,84 @@ def log_k7_table(rows, card: str) -> None:
             f"| {bound:.5f} | {ms / calls / bound:.1f}")
 
 
+def k1_plan_text(plan) -> str:
+    """A K1 plan (ops/gemm.py:plan_k1) in a table cell."""
+    if plan.form == "skinny":
+        return f"skinny {plan.bm}x{plan.bn}, {plan.ntiles} blocks"
+    if plan.form == "narrow":
+        return (f"narrow {plan.bm}x{plan.bn}, {plan.mtiles} tiles on {plan.grid} blocks of "
+                f"{plan.warps} warps")
+    return f"general {plan.bm}x{plan.bn}, {plan.mtiles * plan.ntiles} tiles"
+
+
+def prev_ms(name, cargs, kw):
+    """The replaced design's recorded ms for the same call (PREV_MS), or None."""
+    key = (name, tuple(cargs[0].shape), tuple(cargs[1].shape), kw.get("stride", 1))
+    return PREV_MS.get(key)
+
+
+def cell(v, fmt=".4f") -> str:
+    return "--" if v is None else format(v, fmt)
+
+
+def log_k1_table(rows, card: str) -> None:
+    """K1's calls one by one, strict forwards: shape, epilogue, form and plan
+    (ops/gemm.py:plan_k1), device ms beside the replaced design's recorded ms,
+    torch._int_mm's and the bound."""
+    log(f"K1 per call, batch {BATCH}, {IMAGE_SIZE} px ({card}): path | M | K | N | epilogue | "
+        f"form and plan | K1 ms | PR 6 ms, recorded (PERF.md s6) | _int_mm ms (at M) | bound ms | "
+        f"x bound")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for path, cargs, kw, out, ms, bound, lib_ms, lib_m in rows:
+        (m, k), n = cargs[0].shape, out.shape[1]
+        plan = gemm_ops.plan_k1(m, k, n, sms, 4 if kw["epilogue"] == "int32" else 1)
+        log(f"  K1 | {path} | {m} | {k} | {n} | {kw['epilogue']} | {k1_plan_text(plan)} | "
+            f"{ms:.4f} | {cell(prev_ms('int8_gemm', cargs, kw))} | {lib_ms:.4f} (M={lib_m}) | "
+            f"{bound:.5f} | {ms / bound:.1f}")
+
+
+def dw_library_ms(cargs, kw) -> float:
+    """Device ms of one F.conv2d computing K4's products on the same inputs:
+    float32 (exact: |acc| <= 81 * 128 * 127 < 2^24, TF32 off), channels_last,
+    groups=C, on x padded with pad_value beforehand; no bias or epilogue."""
+    x, w = cargs[0], cargs[1]
+    p = kw["padding"]
+    xf = F.pad(x.permute(0, 3, 1, 2).float(), (p, p, p, p), value=float(kw["pad_value"]))
+    xf = xf.contiguous(memory_format=torch.channels_last)
+    wf = w.permute(3, 2, 0, 1).float().contiguous(memory_format=torch.channels_last)
+    return device_ms(lambda: F.conv2d(xf, wf, stride=kw["stride"], groups=x.shape[3]))[0]
+
+
+def dw_floor_ms(cargs, out, clock_mhz: float) -> float:
+    """K4's CUDA-core issue floor: k * ceil(k / 4) dp4a per output element
+    (4 taps each), at INT_MAD_PER_CLOCK_PER_SM on every SM at `clock_mhz`."""
+    k = cargs[1].shape[0]
+    sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+    return out.numel() * k * -(-k // 4) / (sms * INT_MAD_PER_CLOCK_PER_SM * clock_mhz * 1e3)
+
+
+def log_k4_table(rows, card: str, clock_mhz: float) -> None:
+    """K4's calls one by one, strict forwards: shape, stride, tile
+    (ops/dw.py:plan_dw), device ms beside the replaced design's recorded ms, F.conv2d's, the
+    bytes bound and the dp4a issue floor (at an assumed dp4a rate); x bound against the larger
+    of the two."""
+    log(f"K4 per call, batch {BATCH}, {IMAGE_SIZE} px ({card}; floor at {clock_mhz:.0f} MHz): "
+        f"path | x | k/stride | epilogue | tile th x tw x cb | threads | tiles | blocks | K4 ms "
+        f"| PR 6 ms, recorded (PERF.md s6) | F.conv2d ms | bytes bound ms | "
+        f"dp4a floor ms (assumed rate) | x bound")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for path, cargs, kw, out, ms, bound, lib_ms in rows:
+        n, h, w, c = cargs[0].shape
+        k, st, pad = cargs[1].shape[0], kw["stride"], kw["padding"]
+        plan = dw_ops.plan_dw(n, h, w, c, k, st, pad, sms)
+        g = dw_ops.dw_geometry(h, w, c, k, st, pad, plan.th, plan.tw, plan.cb, plan.rowb)
+        floor = dw_floor_ms(cargs, out, clock_mhz)
+        log(f"  K4 | {path} | {n}x{h}x{w}x{c} | {k}x{k}/s{st} | {kw['epilogue']} | "
+            f"{plan.th}x{plan.tw}x{plan.cb} | {g.threads} | {n * g.tiles_per_image} | {plan.grid} | "
+            f"{ms:.4f} | {cell(prev_ms('dw_int8', cargs, kw))} | {lib_ms:.4f} | {bound:.5f} | "
+            f"{floor:.5f} | {ms / max(bound, floor):.1f}")
+
+
 def add_to(row, path, key, ms):
     """Add a yardstick's ms to a kernel's row and to its entry for `path`."""
     row[key] = row.get(key, 0.0) + ms
@@ -985,8 +1093,8 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
     # tables list the strict forwards' calls (the rungs make the same calls
     # on other inputs); the K5 table every forward's, with each call's form.
     table = {n: new_row(n) for n in KERNELS}
-    k2_rows, k5_rows, k7_rows = [], [], []
-    k1_at_k7 = {}
+    k1_rows, k2_rows, k4_rows, k5_rows, k7_rows = [], [], [], [], []
+    k1_at_k7, dw_lib = {}, {}
     for (path, rung), (eng, counts, checked) in forwards.items():
         key = path if rung is None else f"{path}/{RUNGS[rung]}"
         for name, cargs, kw, out, err in checked:
@@ -999,6 +1107,17 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
                 log(f"{key} library {name}: torch._int_mm at M={lib_m} (call's M={M}), "
                     f"K={K}, N={N}: {lib_ms:.4f} ms")
                 add_to(table[name], key, "library_ms", lib_ms)
+            if name == "int8_gemm" and rung is None:
+                k1_rows.append((path, cargs, kw, out, ms, bound, lib_ms, lib_m))
+            if name == "dw_int8":
+                shape = (tuple(cargs[0].shape), tuple(cargs[1].shape), kw["stride"], kw["padding"])
+                if shape not in dw_lib:  # timed once per shape: the values do not matter
+                    dw_lib[shape] = dw_library_ms(cargs, kw)
+                log(f"{key} library dw_int8: F.conv2d (float32, channels_last, groups=C, no "
+                    f"epilogue) at the same call: {dw_lib[shape]:.4f} ms")
+                add_to(table[name], key, "library_ms", dw_lib[shape])
+                if rung is None:
+                    k4_rows.append((path, cargs, kw, out, ms, bound, dw_lib[shape]))
             if name == "int8_gemm_v2":
                 shape = (tuple(cargs[0].shape), N, tuple(sorted(kw.items())))
                 if shape not in k1_at_k7:  # timed once per shape and epilogue
@@ -1023,7 +1142,9 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
     log(f"time int8_gemm {describe(extra, extra_kw)}: {ms:.4f} ms (call {call_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, bound {1e3 * max(tb, to):.4f} ms, {nb} bytes, {ops} ops")
 
+    log_k1_table(k1_rows, card)
     log_k2_table(k2_rows, card)
+    log_k4_table(k4_rows, card, float(smi("clocks.max.sm").split()[0]))
     log_k5_table(k5_rows, card)
     log_k7_table(k7_rows, card)
 

@@ -6,10 +6,11 @@
 //
 // Per step of the reduction the block stages a 64 x 64-byte A tile (rows =
 // GEMM rows or output pixels, k contiguous) and a 64 x 64-byte B tile
-// (columns = output channels, k contiguous) in shared memory.  B arrives from
-// device memory as a (K, N) row-major matrix -- the reference's HWIO / (in,
-// out) layout -- and is transposed 4 x 4 bytes at a time on its way into
-// shared memory, so no weight is re-laid out outside the kernel.
+// (columns = output channels, k contiguous) in shared memory.  K1 copies B
+// from its packed weights (ops/gemm.py:pack_k1_weight), already k-contiguous;
+// K6 reads a (K, N) row-major matrix -- the reference's HWIO layout -- and
+// transposes it 4 x 4 bytes at a time on its way into shared memory
+// (load_b_kn).
 //
 // Fragment layouts are PTX's for m16n8k32 with .s8 operands (g = lane / 4,
 // t = lane % 4):
@@ -93,32 +94,6 @@ __device__ __forceinline__ void tile_mma(const SmemTile& s, Acc& acc) {
   tile_mma_ptr(s.a, kLDS, s.b, kLDS, acc);
 }
 
-// Stage A[m0 .. m0+64, k0 .. k0+64) of a row-major (M, K) int8 matrix as
-// s.a[row][k], V bytes per load (16 or 4; requires K % V == 0 and `x`
-// V-byte aligned).  Rows past M and bytes past K are staged as 0, so a K that
-// is not a multiple of kBK needs no padding in device memory: zero times
-// anything adds nothing to the sum.
-template <int V>
-__device__ __forceinline__ void load_a_rows(SmemTile& s, const int8_t* x, int M, int K, int m0,
-                                            int k0) {
-  constexpr int kPerRow = kBK / V;
-#pragma unroll
-  for (int j = 0; j < kBM * kPerRow / kThreads; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int row = q / kPerRow, kc = (q % kPerRow) * V;
-    const int m = m0 + row, k = k0 + kc;
-    const bool ok = m < M && k < K;
-    const int8_t* src = x + static_cast<size_t>(m) * K + k;
-    int8_t* dst = s.a + row * kLDS + kc;
-    static_assert(V == 16 || V == 4, "16- or 4-byte row loads");
-    if constexpr (V == 16)
-      *reinterpret_cast<uint4*>(dst) =
-          ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-    else
-      *reinterpret_cast<uint32_t*>(dst) = ok ? *reinterpret_cast<const uint32_t*>(src) : 0u;
-  }
-}
-
 // Four bytes B[k][n .. n+3] of a row-major int8 matrix with row stride N,
 // 0 past column N: one 32-bit load when kVec4 (N % 4 == 0, `row` 4-byte
 // aligned), byte loads otherwise.
@@ -161,12 +136,6 @@ __device__ __forceinline__ void load_b_kn(int8_t* sb, const int8_t* w, int N, in
     for (int cc = 0; cc < 4; ++cc)
       *reinterpret_cast<uint32_t*>(sb + (nq * 4 + cc) * kLDS + k) = c[cc];
   }
-}
-
-template <bool kVec4>
-__device__ __forceinline__ void load_b_kn(SmemTile& s, const int8_t* w, int N, int kvalid,
-                                          int n0) {
-  load_b_kn<kVec4>(s.b, w, N, kvalid, n0);
 }
 
 // 16-byte asynchronous copy global -> shared (cp.async, L2 only); with

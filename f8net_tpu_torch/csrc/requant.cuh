@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cstdint>
+#include <climits>
 
 namespace f8 {
 
@@ -59,6 +60,51 @@ __device__ __forceinline__ int32_t requant_value(int32_t v, int net, bool out_si
 __device__ __forceinline__ int8_t requant8(int32_t v, int net, bool out_signed) {
   const int32_t r = requant_value(v, net, out_signed);
   return static_cast<int8_t>(out_signed ? r : r - 128);
+}
+
+// bias_relu and requant8 with the call's constants worked out once, for
+// kernels whose time goes to the epilogue (K1, K4): per element an add, a
+// max, an add, two shifts, a tie test, a clamp and an offset, with no
+// branch on net, relu or out_signed.  The same values:
+//   * relu is max(v, 0), and no relu max(v, INT32_MIN);
+//   * with s = v + 2^(net-1) (wrapping), v's low net bits equal 2^(net-1)
+//     exactly when s's are 0, and then (s >> (net+1)) * 2 == (s >> net) & ~1
+//     (arithmetic shifts), so a tie clears the low bit;
+//   * net <= 0 shifts left by -net, adds nothing, and never ties (mask 0
+//     against tie value 1).
+struct Epilogue8 {
+  int32_t floor, lo, hi, off;
+  uint32_t half, mask, tie;
+  int shr, shl;
+
+  __device__ __forceinline__ Epilogue8(int net, bool out_signed, bool relu)
+      : floor(relu ? 0 : INT32_MIN),
+        lo(out_signed ? -127 : 0),
+        hi(out_signed ? 127 : 255),
+        off(out_signed ? 0 : 128),
+        half(net > 0 ? 1u << (net - 1) : 0u),
+        mask(net > 0 ? (1u << net) - 1u : 0u),
+        tie(net > 0 ? 0u : 1u),
+        shr(net > 0 ? net : 0),
+        shl(net > 0 ? 0 : -net) {}
+
+  // the int32 epilogue: acc + bias (wrapping), then the ReLU
+  __device__ __forceinline__ int32_t int32(int32_t acc, int32_t bias) const {
+    return max(add_wrap(acc, bias), floor);
+  }
+
+  // the requant8 epilogue's stored byte (-128..127), as an int
+  __device__ __forceinline__ int32_t byte(int32_t acc, int32_t bias) const {
+    const uint32_t s = static_cast<uint32_t>(int32(acc, bias)) + half;
+    int32_t r = static_cast<int32_t>(static_cast<uint32_t>(static_cast<int32_t>(s) >> shr) << shl);
+    if ((s & mask) == tie) r &= ~1;
+    return min(max(r, lo), hi) - off;
+  }
+};
+
+// the low bytes of four ints, packed into one word (byte i from v_i)
+__device__ __forceinline__ uint32_t pack4(int32_t v0, int32_t v1, int32_t v2, int32_t v3) {
+  return __byte_perm(__byte_perm(v0, v1, 0x0040), __byte_perm(v2, v3, 0x0040), 0x5410);
 }
 
 }  // namespace f8

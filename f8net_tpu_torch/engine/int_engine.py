@@ -58,15 +58,17 @@ form):
   * the other blocks layer by layer: depthwise convs (stride 1 and 2) in K4
     (ops.dw), 1x1/s1 convs as GEMMs over N*H*W rows, in K7 where it takes
     them (6 per forward) and in K1 otherwise (the 24 -> 144 expand, K = 24,
-    and the 32 -> 16 and 96 -> 24 projects);
+    and the 32 -> 16 and 96 -> 24 projects), on weights packed once, at
+    construction (ops.gemm.pack_k1_weight);
   * the tail (1x1 to 1280, int32 + ReLU) in K7; in the bf16 rung its ReLU
     stays fused before the conversion to bf16, with which it commutes.
 
-Both: the classifier in K1 (ops.gemm), int32 epilogue, logits float32.  The
-glue -- the input pack, the pack of a carry for the next conv, the
-conversions of the relaxed rungs, the aligned wrapping residual add (or the
-bf16 add), ReLU and the average pool (shift-sum; an f32 sum of bf16 values
-in the bf16 rung) -- is plain torch on the same device.
+Both: the classifier in K1 (ops.gemm) on weights packed at construction,
+int32 epilogue, logits float32.  The glue -- the input pack, the pack of a
+carry for the next conv, the conversions of the relaxed rungs, the aligned
+wrapping residual add (or the bf16 add), ReLU and the average pool
+(shift-sum; an f32 sum of bf16 values in the bf16 rung) -- is plain torch on
+the same device.
 
 Each rung's results are the JAX engine's `IntEngine(int_only=True)` with the
 same rung's flag, bit for bit, whichever route that engine takes -- in the
@@ -188,8 +190,9 @@ class IntEngine:
         self._dwk, self._irk = _dw.dw_int8, _ir.fused_ir_block
         self._gemm2 = _gemm_v2.int8_gemm_v2
         # weights in the kernels' own layouts, packed once: every K2 and K7
-        # layer's (K-major 16-byte chunks) and, for ResNets, the stem's (K3);
-        # K5's expand and project weights are packed in _fused
+        # layer's (K-major 16-byte chunks), every K1 layer's and the
+        # classifier's (columns k-contiguous) and, for ResNets, the stem's
+        # (K3); K5's expand and project weights are packed in _fused
         self._packed = {
             name: _conv.pack_conv_weight(self.params[name]["w"])
             for name in self.graph.names()
@@ -197,9 +200,14 @@ class IntEngine:
             and not is_pointwise(self.graph[name]) and not self.graph[name].is_depthwise
         }
         for name in self.graph.names():
-            if self.on_k7(name):
-                w = self.params[name]["w"]
-                self._packed[name] = _gemm_v2.pack_gemm_weight(w.reshape(-1, w.shape[-1]))
+            spec = self.graph[name]
+            if not (isinstance(spec, ConvBNSpec) and is_pointwise(spec)) or name in self._in_k5:
+                continue
+            w = self.params[name]["w"]
+            w = w.reshape(-1, w.shape[-1])
+            pack = _gemm_v2.pack_gemm_weight if self.on_k7(name) else _gemm.pack_k1_weight
+            self._packed[name] = pack(w)
+        self._packed["classifier"] = _gemm.pack_k1_weight(self.params["classifier"]["w"])
         if model.name == "mobilenet_v2":
             w = self.params["head"]["w"]
             cpad = -w.shape[2] % 16
@@ -358,10 +366,8 @@ class IntEngine:
             )
         if is_pointwise(spec):
             n, h, wd, c = x8.shape
-            if self.on_k7(name):  # packed at construction
-                y = self._gemm2(x8.reshape(-1, c), w, b, relu=relu, **epi)
-            else:
-                y = self._gemm(x8.reshape(-1, c), w.reshape(c, -1), b, relu=relu, **epi)
+            k = self._gemm2 if self.on_k7(name) else self._gemm  # packed at construction
+            y = k(x8.reshape(-1, c), w, b, relu=relu, **epi)
             y = y.reshape(n, h, wd, -1)
         else:
             kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad, relu=relu)
@@ -519,7 +525,7 @@ class IntEngine:
         b = p.get("b") if self.plan["classifier"].input_symmetric else p["b_zp"]
         if b is None:
             b = torch.zeros(p["w"].shape[1], dtype=torch.int32, device=self.device)
-        return self._gemm(a.x, p["w"], b, epilogue="int32").to(torch.float32)
+        return self._gemm(a.x, self._packed["classifier"], b, epilogue="int32").to(torch.float32)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Conditioned input (condition_input's output) -> float32 logits."""

@@ -13,20 +13,202 @@ Epilogues:
                 round-half-to-even, clamp to the signed or unsigned 8-bit
                 range, unsigned stored as u - 128 (`out_signed` False)
 
+`w` is a (K, N) int8 matrix (packed here, on every call) or the same weights
+packed once by `pack_k1_weight` (what `IntEngine` passes).  `plan_k1` picks
+one of the kernel's three forms per call:
+  'skinny'   M <= SKINNY_M (a classifier): the weights streamed across the
+             card in groups of 8 columns, one block each;
+  'narrow'   N < 32 or K % 16 != 0 with many rows (MobileNet's narrow 1x1
+             convs): the weights resident in shared memory, a persistent
+             grid streaming 128-row tiles of x;
+  'general'  everything else: 64 x 64 tiles over a cp.async ring.
+
 `int8_gemm` launches the kernel for CUDA tensors and raises on what it does
 not take; for CPU tensors it runs `int8_gemm_plain`, the plain PyTorch
-version that the tests and `chip_smoke.py` hold the kernel against.
+version that the tests and `chip_smoke.py` hold the kernel against, from
+the packed layout when given packed weights (with a plan, the plan's
+blocks and partial sums one by one: `int8_gemm_tiled_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Iterator, List, NamedTuple, Optional, Tuple
+
 import torch
 
 from . import _build
 from .fxp import requant_net, wrap_i32
 
 EPILOGUES = {"int32": 0, "requant8": 1}
+FORMS = {"skinny": 0, "narrow": 1, "general": 2}
+
+K_ALIGN = 32  # packed reduction bytes: one m16n8k32 step
+N_ALIGN = 8  # packed output columns: one n8 tile
+SKINNY_M = 64  # at most 4 m16 tiles of rows: the classifier at batch <= 64
+CHUNK = 64  # skinny: reduction bytes per warp per stage (4 lanes x 16)
+SKINNY_BN = 8  # skinny: output columns per block, one n8 tile
+NARROW_BM = 128  # narrow: rows per tile (8 row warps x 16)
+NARROW_MAX_N = 160  # narrow: columns it keeps resident and stages as int32
+NARROW_STAGES = 4  # narrow: x tiles in flight per block
+GENERAL_BM = GENERAL_BN = 64  # general: tile (csrc/mma_tile.cuh kBM, kBN)
+SMEM_LIMIT = 232448  # shared memory one block can have on an H100
+SMEM_PER_SM = 233472  # an H100 SM's shared memory (228 KB), 1 KB of it reserved per block
+NARROW_PER_SM = 4  # narrow: resident blocks of 8 warps per SM it plans for at most
+H100_SMS = 132
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class PackedK1Weight(NamedTuple):
+    """(K, N) int8 weights in K1's operand layout: `data` is (N_pad, K_pad)
+    int8 -- w transposed, each output column's reduction bytes contiguous,
+    zero-padded to K_pad (a multiple of K_ALIGN) and N_pad (a multiple of
+    N_ALIGN).  A column's 16-byte k-chunks are what an mma.sync B fragment
+    reads, so every form copies weights with 16-byte cp.async; the zero
+    pad makes a K of 24 a K of 32 and a 10-class head 16 columns wide."""
+
+    data: torch.Tensor
+    k: int
+    n: int
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """The logical (K, N) shape."""
+        return (self.k, self.n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def pack_k1_weight(w: torch.Tensor) -> PackedK1Weight:
+    """(K, N) int8 weights -> PackedK1Weight, on w's device."""
+    k, n = w.shape
+    data = torch.zeros((_round_up(n, N_ALIGN), _round_up(k, K_ALIGN)), dtype=torch.int8,
+                       device=w.device)
+    data[:n, :k] = w.t()
+    return PackedK1Weight(data, k, n)
+
+
+def unpack_k1_weight(p: PackedK1Weight) -> torch.Tensor:
+    """The (K, N) matrix a PackedK1Weight holds."""
+    return p.data[: p.n, : p.k].t().contiguous()
+
+
+class K1Plan(NamedTuple):
+    """K1's launch plan.  `form` names the kernel form; output tiles of `bm`
+    x `bn`, `mtiles` x `ntiles` of them, on `grid` blocks (narrow form:
+    persistent, each walking tiles blockIdx.x, + grid, ...) of `warps`
+    warps (8 or 16 in the narrow form, 4 in the others)."""
+
+    form: str
+    bm: int
+    bn: int
+    mtiles: int
+    ntiles: int
+    grid: int
+    warps: int
+
+
+def narrow_smem(k: int, n: int, esize: int = 4) -> int:
+    """Shared memory of a narrow-form block (csrc narrow_smem): the x ring
+    (+32 bytes the last row's padded k step may read), the resident weights
+    at row stride K_pad + 16, and the output tile staged at `esize` bytes an
+    element (4: int32, 1: requant8)."""
+    return (NARROW_STAGES * NARROW_BM * k + 32 + _round_up(n, N_ALIGN) * (_round_up(k, K_ALIGN) + 16)
+            + NARROW_BM * n * esize)
+
+
+def narrow_per_sm(k: int, n: int, esize: int = 4) -> int:
+    """Narrow-form blocks one SM holds at once, by shared memory, at most
+    NARROW_PER_SM."""
+    return max(1, min(NARROW_PER_SM, SMEM_PER_SM // (narrow_smem(k, n, esize) + 1024)))
+
+
+def skinny_plan(m: int, k: int, n: int) -> K1Plan:
+    ntiles = -(-n // SKINNY_BN)
+    return K1Plan("skinny", 16 * -(-m // 16), SKINNY_BN, 1, ntiles, ntiles, 4)
+
+
+def narrow_plan(m: int, k: int, n: int, grid: int, warps: int = 8) -> K1Plan:
+    mtiles = -(-m // NARROW_BM)
+    return K1Plan("narrow", NARROW_BM, n, mtiles, 1, min(grid, mtiles), warps)
+
+
+def general_plan(m: int, k: int, n: int) -> K1Plan:
+    mtiles, ntiles = -(-m // GENERAL_BM), -(-n // GENERAL_BN)
+    return K1Plan("general", GENERAL_BM, GENERAL_BN, mtiles, ntiles, mtiles * ntiles, 4)
+
+
+def k1_form(m: int, k: int, n: int) -> str:
+    """The form a call takes: skinny for M <= SKINNY_M (K % 16 == 0, so a
+    lane's 16-byte x chunks are aligned), narrow for N < 32 or K % 16 != 0
+    where N % 8 == 0 and the block's layout fits, general otherwise."""
+    if m <= SKINNY_M and k % 16 == 0:
+        return "skinny"
+    if (n < 32 or k % 16 != 0) and n % N_ALIGN == 0 and n <= NARROW_MAX_N \
+            and narrow_smem(k, n) <= SMEM_LIMIT:
+        return "narrow"
+    return "general"
+
+
+def k1_candidates(m: int, k: int, n: int, sms: int = H100_SMS, esize: int = 4):
+    """Every plan plan_k1 weighs for a call (probe_plans.py times them all):
+    skinny -- its one plan; narrow -- persistent grids of 1 block per SM up
+    to as many as fit, and one block per tile, each of 8 warps (one per 16
+    rows) or 16 (two column halves) where N spans at least two passes of 6
+    n8 tiles; general -- its one tiling.  `esize`: output bytes per element
+    (4 int32, 1 requant8)."""
+    form = k1_form(m, k, n)
+    if form == "skinny":
+        return [skinny_plan(m, k, n)]
+    if form == "narrow":
+        grids = {min(b * sms, -(-m // NARROW_BM)) for b in range(1, narrow_per_sm(k, n, esize) + 1)}
+        warps = (8, 16) if n >= 96 else (8,)
+        return [narrow_plan(m, k, n, g, w) for w in warps for g in sorted(grids | {-(-m // NARROW_BM)})]
+    return [general_plan(m, k, n)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_k1(m: int, k: int, n: int, sms: int = H100_SMS, esize: int = 4) -> K1Plan:
+    """Plan a K1 call of an (m, k) x (k, n) product on a card with `sms` SMs;
+    `esize` is the output's bytes per element.
+
+    Skinny: one block per 8 columns.  Narrow: as many blocks per SM as
+    shared memory holds, up to NARROW_PER_SM, or one per tile where there
+    are fewer tiles; 16 warps where N >= 96 (the requant epilogue, not the
+    bytes, sets the time there).  General: 64 x 64 tiles."""
+    form = k1_form(m, k, n)
+    if form == "skinny":
+        return skinny_plan(m, k, n)
+    if form == "narrow":
+        return narrow_plan(m, k, n, narrow_per_sm(k, n, esize) * sms, 16 if n >= 96 else 8)
+    return general_plan(m, k, n)
+
+
+def k1_parts(plan: K1Plan, k: int) -> List[Tuple[int, int]]:
+    """[(lo, hi)] the reduction ranges whose products the kernel sums
+    separately before adding them in int32: the skinny form's 64-byte
+    chunks (warp w of a block takes chunks w, w + 4, ...; the 4 warps'
+    partials meet in shared memory); one range in the other forms."""
+    if plan.form != "skinny":
+        return [(0, k)]
+    return [(lo, min(lo + CHUNK, k)) for lo in range(0, k, CHUNK)]
+
+
+def k1_work(plan: K1Plan, m: int, k: int, n: int) -> Iterator[Tuple[int, int, int, int, int, int]]:
+    """(row lo, row hi, column lo, column hi, k lo, k hi) of each piece of
+    work the plan's blocks do: each output tile once per part of the
+    reduction (k1_parts), clipped to the (m, n) output."""
+    for t in range(plan.mtiles * plan.ntiles):
+        mi, ni = divmod(t, plan.ntiles)
+        r0, c0 = mi * plan.bm, ni * plan.bn
+        for lo, hi in k1_parts(plan, k):
+            yield r0, min(r0 + plan.bm, m), c0, min(c0 + plan.bn, n), lo, hi
 
 
 def epilogue_plain(
@@ -48,42 +230,120 @@ def epilogue_plain(
     return r.to(torch.int8)
 
 
+def k1_acc_packed(x: torch.Tensor, wp: PackedK1Weight, k_range=None) -> torch.Tensor:
+    """x @ w from the packed layout, plain: the exact int64 accumulators
+    (M, N) over the padded reduction (zero weights in the pad), over
+    reduction bytes [lo, hi) only when `k_range` is given.  float64 is
+    exact here: |acc| <= K * 128 * 127 < 2^53."""
+    n_pad, k_pad = wp.data.shape
+    a = torch.nn.functional.pad(x.to(torch.float64), (0, k_pad - x.shape[1]))
+    b = wp.data.t().to(torch.float64)
+    if k_range is not None:
+        lo, hi = k_range
+        a, b = a[:, lo:hi], b[lo:hi]
+    return torch.matmul(a, b)[:, : wp.n].to(torch.int64)
+
+
 def int8_gemm_plain(
-    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, epilogue: str = "int32",
+    x: torch.Tensor, w, bias: torch.Tensor, *, epilogue: str = "int32",
     net: int = 0, out_signed: bool = True, relu: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1.  The product runs in float64, exact
-    here: |acc| <= K * 128 * 127 < 2^53 for any K below 5e11."""
-    acc = torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(torch.int64)
+    """Plain PyTorch version of K1: from the packed layout for a
+    PackedK1Weight, else from the (K, N) matrix.  The product runs in
+    float64, exact here: |acc| <= K * 128 * 127 < 2^53 for any K below
+    5e11."""
+    if isinstance(w, PackedK1Weight):
+        acc = k1_acc_packed(x, w)
+    else:
+        acc = torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(torch.int64)
     return epilogue_plain(acc, bias, epilogue, net, out_signed, relu)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def int8_gemm_tiled_plain(
+    x: torch.Tensor, wp: PackedK1Weight, bias: torch.Tensor, plan: K1Plan, *,
+    epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
+) -> torch.Tensor:
+    """K1 under `plan`, plain: each piece of k1_work from the packed layout,
+    one int32 partial per part of the reduction, the partials of a tile
+    added with int32 wraparound, then the epilogue once on the whole sum."""
+    m, n = x.shape[0], wp.n
+    acc = torch.zeros((m, n), dtype=torch.int64)
+    seen = torch.zeros((m, n), dtype=torch.int64)
+    for r0, r1, c0, c1, lo, hi in k1_work(plan, m, wp.k, n):
+        part = wrap_i32(k1_acc_packed(x[r0:r1], wp, k_range=(lo, hi))[:, c0:c1])
+        acc[r0:r1, c0:c1] = wrap_i32(acc[r0:r1, c0:c1] + part)
+        seen[r0:r1, c0:c1] += hi - lo
+    if not bool((seen == wp.k).all()):
+        raise AssertionError("the plan does not reduce every output over K once")
+    return epilogue_plain(acc, bias, epilogue, net, out_signed, relu)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fits(plan: K1Plan, m: int, k: int, n: int) -> bool:
+    """Whether `plan` is one the kernel takes for an (m, k) x (k, n) call:
+    its form's, covering the output once."""
+    if plan.form != k1_form(m, k, n) or plan.grid < 1:
+        return False
+    if plan.form == "skinny":
+        return plan == skinny_plan(m, k, n)
+    if plan.form == "narrow":
+        return (plan.bm == NARROW_BM and plan.bn == n and plan.mtiles == -(-m // NARROW_BM)
+                and plan.ntiles == 1 and plan.grid <= plan.mtiles and plan.warps in (8, 16))
+    return plan == general_plan(m, k, n)
 
 
 def int8_gemm(
-    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
+    x: torch.Tensor, w, bias: torch.Tensor, *,
     epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
+    plan: Optional[K1Plan] = None,
 ) -> torch.Tensor:
     """K1 on the tensors' device: the CUDA kernel on a card, the plain
-    version on the CPU."""
+    version on the CPU.  `w` is (K, N) (packed here, on every call) or a
+    PackedK1Weight (packed once by the caller).  `plan` overrides
+    plan_k1's (to measure or test another one)."""
+    epi = dict(epilogue=epilogue, net=net, out_signed=out_signed, relu=relu)
     if x.device.type == "cpu":
-        return int8_gemm_plain(
-            x, w, bias, epilogue=epilogue, net=net, out_signed=out_signed, relu=relu
-        )
+        if plan is not None:
+            wp = w if isinstance(w, PackedK1Weight) else pack_k1_weight(w)
+            return int8_gemm_tiled_plain(x, wp, bias, plan, **epi)
+        return int8_gemm_plain(x, w, bias, **epi)
     req = _build.require
     req(x.device.type == "cuda", f"int8_gemm: no kernel for device {x.device}")
     req(w.device == x.device and bias.device == x.device, "int8_gemm: mixed devices")
-    req(x.dtype == torch.int8 and w.dtype == torch.int8, "int8_gemm: x and w must be int8")
+    req(x.dtype == torch.int8, "int8_gemm: x and w must be int8")
+    if isinstance(w, torch.Tensor):
+        req(w.dtype == torch.int8, "int8_gemm: x and w must be int8")
+        req(w.ndim == 2, "int8_gemm: shapes")
+        w = pack_k1_weight(w)
+    req(isinstance(w, PackedK1Weight), "int8_gemm: w must be (K, N) or a PackedK1Weight")
     req(bias.dtype == torch.int32, "int8_gemm: bias must be int32")
-    req(x.ndim == 2 and w.ndim == 2 and x.shape[1] == w.shape[0], "int8_gemm: shapes")
+    req(x.ndim == 2 and x.shape[1] == w.k, "int8_gemm: shapes")
     M, K = x.shape
-    N = w.shape[1]
+    N = w.n
     req(bias.shape == (N,), "int8_gemm: bias shape")
+    req(M > 0 and N > 0, "int8_gemm: empty output")
     req(K > 0 and K % 4 == 0, f"int8_gemm: needs K % 4 == 0, got {K}")
-    req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "int8_gemm: contiguity")
-    vec_a = 16 if K % 16 == 0 else 4  # bytes per load of an x row in the kernel
-    req(x.data_ptr() % vec_a == 0 and w.data_ptr() % 4 == 0, "int8_gemm: alignment")
+    wdata = w.data
+    req(wdata.dtype == torch.int8
+        and tuple(wdata.shape) == (_round_up(N, N_ALIGN), _round_up(K, K_ALIGN)),
+        f"int8_gemm: packed weight data {tuple(wdata.shape)} {wdata.dtype} does not match "
+        f"K={K} N={N}")
+    req(x.is_contiguous() and wdata.is_contiguous() and bias.is_contiguous(),
+        "int8_gemm: contiguity")
+    if plan is None:
+        plan = plan_k1(M, K, N, _sm_count(x.device), 4 if epilogue == "int32" else 1)
+    req(plan_fits(plan, M, K, N), f"int8_gemm: the plan does not fit the call: {plan}")
+    # x rows load in 16-byte pieces (4-byte ones in the general form at K % 16 != 0)
+    vec_a = 16 if K % 16 == 0 or plan.form == "narrow" else 4
+    req(x.data_ptr() % vec_a == 0 and wdata.data_ptr() % 16 == 0, "int8_gemm: alignment")
     req(epilogue in EPILOGUES, f"int8_gemm: unknown epilogue {epilogue!r}")
     req(-31 < net < 31, f"int8_gemm: shift {net} out of range")
     out = torch.empty(
@@ -92,11 +352,12 @@ def int8_gemm(
     lib, fn = _build.kernel("int8_gemm", "f8_int8_gemm", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
-            vec_a, EPILOGUES[epilogue], net, int(out_signed), int(relu), _build.stream_of(x),
+            x.data_ptr(), wdata.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
+            FORMS[plan.form], plan.grid, plan.warps, vec_a,
+            EPILOGUES[epilogue], net, int(out_signed), int(relu), _build.stream_of(x),
         )
-        int8_gemm.launches += 1
     _build.check(lib, rc, "int8_gemm")
+    int8_gemm.launches += 1
     return out
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time K5 and K7 under every plan their planners consider, on one card.
+"""Time K1, K4, K5 and K7 under every plan their planners consider, on one
+card.
 
     python3 probe_plans.py [--batch 8] [--seed 0]
 
@@ -11,9 +12,20 @@ seed: device ms per call (torch.profiler's kernel time over 10 launches) of
 the kernel under each candidate plan -- K5: band heights x Ce splits whose
 layout fits; K7: both tile widths, unsplit and split 2-8 ways -- each
 output checked bitwise against the planner's own plan's; K7 also beside K1
-and torch._int_mm at the same shape.  Prints one line per (shape, plan),
-the planner's choice marked `*`, and the card's name and power limit.
-Needs a CUDA device.
+and torch._int_mm at the same shape.  K1 at each K1 call of ResNet-18,
+MobileNetV2 and ResNet-50 (the three classifiers, MobileNetV2's three narrow
+1x1 convs) and K4 at MobileNetV2's five depthwise calls, each at batch 8
+and 64 whatever --batch says, under every plan ops.gemm.k1_candidates /
+ops.dw.dw_candidates list, each output checked bitwise against the
+planner's plan's; a summary line per call gives the pick's cost over the
+best probed plan, and one per kernel and batch the sum over the calls.
+Then K4 at MobileNetV2's five calls at batch 8 under plan_dw's plans with
+parts of csrc/dw_conv.cu cut out -- the epilogue's arithmetic, the
+multiply-adds (and with them the epilogue, whose inputs become constants),
+the halo copies -- each variant built with nvcc into f8net_tpu_torch/_build/:
+where the kernel's time goes.
+Prints one line per (shape, plan), the planner's choice marked `*`, and the
+card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,7 +36,12 @@ import sys
 import numpy as np
 import torch
 
+import ctypes
+import subprocess
+
 import chip_smoke
+from f8net_tpu_torch.ops import _build
+from f8net_tpu_torch.ops import dw as dw_ops
 from f8net_tpu_torch.ops import gemm as gemm_ops
 from f8net_tpu_torch.ops import gemm_v2 as gemm_v2_ops
 from f8net_tpu_torch.ops import ir_block as ir_ops
@@ -54,6 +71,18 @@ MBV2_K1_SHAPES = [
     (196, 96, 576, "requant8"), (49, 576, 160, "int32"), (49, 320, 1280, "int32"),
 ]
 
+# (M / batch, K, N, epilogue) of the K1 calls of the three paths at 224 px:
+# the classifiers, then MobileNetV2's 1x1 convs off K7
+K1_SHAPES = [
+    (1, 512, 1000, "int32"), (1, 1280, 1000, "int32"), (1, 2048, 1000, "int32"),
+    (12544, 32, 16, "requant8"), (3136, 96, 24, "int32"), (3136, 24, 144, "requant8"),
+]
+# (h, w, c, k, stride, padding) of MobileNetV2's K4 calls at 224 px
+K4_SHAPES = [
+    (112, 112, 32, 3, 1, 1), (112, 112, 96, 3, 2, 1), (56, 56, 144, 3, 2, 1),
+    (28, 28, 192, 3, 2, 1), (14, 14, 576, 3, 2, 1),
+]
+K1_K4_BATCHES = (8, 64)
 
 # the K5 form of a residual and of another block's call in each rung:
 # (carry dtype or None, output)
@@ -92,6 +121,129 @@ def k7_plans(m, k, n, sms):
                 yield gemm_v2_ops.GemmPlan(bn, n_pad, ksteps, mtiles, n_pad // bn, s, tiles * s)
 
 
+def probe(label, card, shapes, plans_of, run_of):
+    """Time every plan of every shape at each of K1_K4_BATCHES: plans_of(b,
+    shape) -> (the planner's plan, [plans]); run_of(b, shape) -> (describe,
+    run(plan) -> output).  Each output is checked bitwise against the
+    planner's plan's.  Logs one line per plan, one per call with the pick's
+    cost over the best plan, one per batch with the sum over the calls."""
+    for b in K1_K4_BATCHES:
+        pick_sum = best_sum = 0.0
+        for shape in shapes:
+            chosen, plans = plans_of(b, shape)
+            text, run = run_of(b, shape)
+            want = run(chosen)
+            times = {}
+            for plan in plans:
+                if not torch.equal(run(plan), want):
+                    raise AssertionError(f"{label} {text}: plan {plan} differs")
+                times[plan] = chip_smoke.device_ms(lambda: run(plan))[0]
+                mark = "*" if plan == chosen else " "
+                print(f"{mark} {label} | {b} | {text} | {plan} | {times[plan]:.4f}", flush=True)
+            best = min(times, key=times.get)
+            pick_sum += times[chosen]
+            best_sum += times[best]
+            print(f"  {label} pick | {b} | {text} | {times[chosen]:.4f} | best {times[best]:.4f} "
+                  f"{best} | +{100 * (times[chosen] / times[best] - 1):.1f}%", flush=True)
+        print(f"  {label} picks | batch {b}: {pick_sum:.4f} ms over the calls, best plans "
+              f"{best_sum:.4f} ms: +{100 * (pick_sum / best_sum - 1):.1f}% ({card})", flush=True)
+
+
+def probe_k1_k4(rng, dev, sms, card):
+    def ints(shape, lo, hi, dtype=np.int8):
+        return torch.from_numpy(rng.randint(lo, hi, shape).astype(dtype)).to(dev)
+
+    def k1_run(b, shape):
+        mb, k, n, epi = shape
+        x, w = ints((mb * b, k), -128, 128), ints((k, n), -127, 128)
+        wp, bias = gemm_ops.pack_k1_weight(w), ints((n,), -(1 << 16), 1 << 16, np.int32)
+        kw = dict(epilogue=epi, net=9, out_signed=False) if epi == "requant8" else {}
+        return (f"{mb * b} x {k} x {n} {epi}",
+                lambda plan: gemm_ops.int8_gemm(x, wp, bias, plan=plan, **kw))
+
+    def k1_plans(b, shape):
+        m, k, n, esize = shape[0] * b, shape[1], shape[2], 4 if shape[3] == "int32" else 1
+        return (gemm_ops.plan_k1(m, k, n, sms, esize),
+                gemm_ops.k1_candidates(m, k, n, sms, esize))
+
+    def k4_run(b, shape):
+        h, w, c, k, st, pad = shape
+        x, wt = ints((b, h, w, c), -128, 128), ints((k, k, 1, c), -127, 128)
+        bias = ints((c,), -(1 << 14), 1 << 14, np.int32)
+        kw = dict(stride=st, padding=pad, pad_value=-128, epilogue="requant8", net=7,
+                  out_signed=False)
+        return (f"{b}x{h}x{w}x{c} {k}x{k}/s{st}",
+                lambda plan: dw_ops.dw_int8(x, wt, bias, plan=plan, **kw))
+
+    def k4_plans(b, shape):
+        return (dw_ops.plan_dw(b, *shape, sms), dw_ops.dw_candidates(b, *shape, sms))
+
+    print(f"K1 plans ({card}): batch | M x K x N epilogue | plan | ms", flush=True)
+    probe("K1", card, K1_SHAPES, k1_plans, k1_run)
+    print(f"K4 plans ({card}): batch | x k/stride | plan | ms", flush=True)
+    probe("K4", card, K4_SHAPES, k4_plans, k4_run)
+
+
+# K4 with parts cut out: (name, [(text in csrc/dw_conv.cu, its replacement)])
+K4_EPILOGUE = ("epi.byte(acc[0][o], b[0]), epi.byte(acc[1][o], b[1]), epi.byte(acc[2][o], b[2]),\n"
+               "                  epi.byte(acc[3][o], b[3])", "acc[0][o], acc[1][o], acc[2][o], acc[3][o]")
+K4_MACS = ("for (int ky = 0; ky < KS; ++ky) {", "for (int ky = 0; ky < 0; ++ky) {")
+K4_COPIES = ("dw_cp16(dst, src + ", "if (a.n < 0) dw_cp16(dst, src + ")
+K4_PARTS = [("whole", []), ("no epilogue arithmetic", [K4_EPILOGUE]),
+            ("no multiply-adds", [K4_MACS]), ("no halo copies", [K4_COPIES]),
+            ("copies and stores only", [K4_MACS, K4_EPILOGUE])]
+
+
+def probe_k4_parts(sms, card):
+    src = (_build.CSRC / "dw_conv.cu").read_text()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    procs = []
+    for i, (_, cuts) in enumerate(K4_PARTS):
+        text = src
+        for old, new in cuts:
+            if old not in text:
+                raise AssertionError(f"k4parts: {old!r} is not in csrc/dw_conv.cu")
+            text = text.replace(old, new)
+        cu = _build.BUILD_DIR / f"dw_parts_{i}.cu"
+        cu.write_text(text)
+        so = _build.BUILD_DIR / f"dw_parts_{i}.so"
+        # each variant's static locals stay its own (GCC would merge them across the libraries)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique",
+               "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.DEVNULL), so))
+    fns = []
+    for proc, so in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"k4parts: nvcc failed for {so.name}")
+        lib = ctypes.CDLL(str(so))
+        lib.f8_error_string.restype = ctypes.c_char_p
+        fn = lib.f8_dw_conv
+        fn.argtypes = dw_ops._ARGTYPES
+        fns.append((lib, fn))
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    print(f"K4 parts, batch 8 ({card}): call | plan | " + " | ".join(n for n, _ in K4_PARTS)
+          + " (device us)", flush=True)
+    for h, w, c, k, st, pad in K4_SHAPES:
+        x = torch.randint(-128, 128, (8, h, w, c), generator=g, dtype=torch.int8).to(dev)
+        wt = torch.randint(-127, 128, (k, k, 1, c), generator=g, dtype=torch.int8).to(dev)
+        bias = torch.randint(-(1 << 14), 1 << 14, (c,), generator=g, dtype=torch.int32).to(dev)
+        oh, ow = dw_ops.dw_out_hw(h, w, k, st, pad)
+        out = torch.empty((8, oh, ow, c), dtype=torch.int8, device=dev)
+        plan = dw_ops.plan_dw(8, h, w, c, k, st, pad, sms)
+        times = []
+        for (name, _), (lib, fn) in zip(K4_PARTS, fns):
+            def run(fn=fn, lib=lib, name=name):
+                rc = fn(x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), 8, h, w, c,
+                        oh, ow, k, st, pad, plan.th, plan.tw, plan.cb, plan.rowb, plan.grid, -128,
+                        1, 7, 0, 0, torch.cuda.current_stream(dev).cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"k4parts {name}: {lib.f8_error_string(rc).decode()}")
+            times.append(chip_smoke.device_ms(run)[0] * 1e3)
+        print(f"  K4 parts | 8x{h}x{w}x{c} {k}x{k}/s{st} | {plan} | "
+              + " | ".join(f"{t:.2f}" for t in times), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -109,6 +261,15 @@ def main(argv=None) -> int:
     def ints(shape, lo, hi, dtype=np.int8):
         return torch.from_numpy(rng.randint(lo, hi, shape).astype(dtype)).to(dev)
 
+    probe_k1_k4(rng, dev, sms, card)
+    probe_k4_parts(sms, card)
+    probe_k5(n, ints, sms, card)
+    probe_k7(n, ints, sms, card)
+    print(card)
+    return 0
+
+
+def probe_k5(n, ints, sms, card):
     print(f"K5 plans, batch {n} ({card}): rung | h x w | cin | ce | cout | carry | out | calls "
           f"| band rows | bands | splits x channels | blocks | smem | ms", flush=True)
     for rung, forms in K5_FORMS.items():
@@ -143,6 +304,8 @@ def main(argv=None) -> int:
                       f"| {calls} | {plan.th} | {plan.bands} | {plan.splits} x {plan.cs} | "
                       f"{n * plan.bands * plan.splits} | {plan.total} | {ms:.4f}", flush=True)
 
+
+def probe_k7(n, ints, sms, card):
     print(f"K7 plans, batch {n} ({card}): M | K | N | epilogue | tile | split | blocks | ms "
           f"| K1 ms | _int_mm ms", flush=True)
     for mb, k, nn, epi in K7_SHAPES:
@@ -182,8 +345,6 @@ def main(argv=None) -> int:
         k7 = chip_smoke.device_ms(lambda: gemm_v2_ops.int8_gemm_v2(x, wp, b, **kw))[0]
         k1 = chip_smoke.device_ms(lambda: gemm_ops.int8_gemm(x, wm, b, **kw))[0]
         print(f"  K1->K7 | {m} | {k} | {nn} | {epi} | {k7:.4f} | {k1:.4f}", flush=True)
-    print(card)
-    return 0
 
 
 if __name__ == "__main__":

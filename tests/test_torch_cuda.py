@@ -25,6 +25,11 @@ K5 carry add wrap; K5's boundary-rung forms (1-byte carry with offsets 0
 and 128, bf16 output) under every plan its planner weighs at MobileNetV2's
 shapes, at couts whose 1-byte carry rows are 4- and 8-byte aligned, at
 2^24 + 2^16 + 1 (rounded twice to bf16), and the forms its wrapper refuses;
+K1 in each of its forms (skinny at M = 1-64 under every column group and
+split of the reduction its planner weighs, narrow at K = 24, 32 and 96 with
+persistent grids of 1 block to 4 per SM, general at K % 16 != 0 and N % 4
+!= 0) on packed and plain weights; K4 at k = 3, 5, 7 and 9 under every
+tile its planner weighs on small maps and under a single persistent block;
 and the engine's three rungs at 64 px.  Every comparison is bitwise.
 """
 
@@ -36,6 +41,8 @@ from f8net_tpu_torch.ops import conv_flat_int8, conv_int8, dw_int8, fused_ir_blo
 from f8net_tpu_torch.ops import int8_gemm_v2, pack_flat, stem_pool, unpack_flat
 from f8net_tpu_torch.ops import PackedConvWeight, pack_conv_weight, pack_stem_weight
 from f8net_tpu_torch.ops.conv import conv_int8_plain
+from f8net_tpu_torch.ops import dw as dw_ops
+from f8net_tpu_torch.ops import gemm as gemm_ops
 from f8net_tpu_torch.ops.gemm_v2 import GemmPlan, pack_gemm_weight
 from f8net_tpu_torch.ops.ir_block import _layout as ir_layout
 from f8net_tpu_torch.ops.conv_flat import conv_flat_int8_plain
@@ -90,6 +97,37 @@ def test_int8_gemm_kernel_vs_plain(dev, M, K, N, wrap):
         got = int8_gemm(x.to(dev), w.to(dev), b.to(dev), **kw)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
+
+
+# (M, K, N): every K1 form -- skinny at M = 1, 8, 33, 64 (a 10-class head
+# and the 1000-class classifier at K = 512 and 2048), narrow at MobileNetV2's
+# three shapes (batch 1) and a ragged M tail, general at K % 16 != 0 and
+# N % 4 != 0
+K1_PLAN_SHAPES = [(1, 512, 1000), (8, 2048, 1000), (64, 1280, 1000), (33, 64, 40), (8, 512, 10),
+                  (12544, 32, 16), (3136, 96, 24), (3136, 24, 144), (1000, 24, 72),
+                  (77, 20, 10), (300, 44, 36)]
+
+
+@pytest.mark.parametrize("M,K,N", K1_PLAN_SHAPES)
+def test_int8_gemm_every_plan_vs_plain(dev, M, K, N):
+    """K1 under every plan its planner weighs for the call (skinny: its one
+    plan, 1-4 m16 tiles of rows; narrow: persistent grids, 8 or 16 warps),
+    on packed and plain weights, both epilogues, biases near INT32_MAX."""
+    rng = np.random.RandomState(M + K + N + 7)
+    x, w, b = _int8(rng, (M, K)), _int8(rng, (K, N), -127), _bias(rng, N, True)
+    xd, wd, bd = x.to(dev), w.to(dev), b.to(dev)
+    wp = gemm_ops.pack_k1_weight(wd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = gemm_ops.k1_candidates(M, K, N, sms)
+    if plans[0].form == "narrow":
+        plans.append(gemm_ops.narrow_plan(M, K, N, 1))
+    for kw in GEMM_EPILOGUES:
+        want = int8_gemm_plain(x, w, b, **kw)
+        assert torch.equal(int8_gemm(xd, wd, bd, **kw).cpu(), want), kw
+        for plan in plans:
+            got = int8_gemm(xd, wp, bd, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (plan, kw)
 
 
 @pytest.mark.parametrize(
@@ -236,7 +274,8 @@ def test_stem_pool_kernel_persistent_grid(dev):
     assert torch.equal(got, stem_pool_plain(xd, wd, bd, pad_value=-128))
 
 
-# (n, h, w, c, k, stride, padding, pad_value)
+# (n, h, w, c, k, stride, padding, pad_value): MobileNetV2's shapes and
+# ragged ones, k = 1 to 9
 DW_SHAPES = [
     (2, 112, 112, 32, 3, 1, 1, -128),
     (1, 9, 11, 48, 3, 2, 1, 0),
@@ -245,6 +284,10 @@ DW_SHAPES = [
     (3, 8, 8, 16, 5, 2, 2, 0),
     (1, 13, 13, 1024, 3, 1, 1, 0),
     (1, 6, 5, 80, 1, 1, 0, 0),
+    (2, 14, 14, 576, 3, 2, 1, -128),
+    (1, 19, 17, 64, 7, 1, 3, -128),
+    (2, 21, 23, 32, 9, 2, 4, 0),
+    (1, 10, 10, 96, 9, 1, 4, -128),
 ]
 
 
@@ -258,6 +301,30 @@ def test_dw_int8_kernel_vs_plain(dev, n, h, w, c, k, stride, padding, pad_value,
         got = dw_int8(x.to(dev), wt.to(dev), b.to(dev), **kw)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), dw_int8_plain(x, wt, b, **kw)), kw
+
+
+# (n, h, w, c, k, stride, padding): small maps on which K4 runs under every
+# tile its planner weighs, and under one persistent block
+DW_PLAN_SHAPES = [(1, 13, 11, 48, 3, 1, 1), (2, 9, 9, 32, 3, 2, 1), (1, 12, 12, 64, 5, 1, 2),
+                  (1, 11, 13, 32, 7, 2, 3), (1, 10, 9, 16, 9, 1, 4)]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,stride,padding", DW_PLAN_SHAPES)
+def test_dw_int8_every_plan_vs_plain(dev, n, h, w, c, k, stride, padding):
+    rng = np.random.RandomState(h * w + c + k)
+    x, wt, b = _int8(rng, (n, h, w, c)), _int8(rng, (k, k, 1, c), -127), _bias(rng, c, True)
+    xd, wd, bd = x.to(dev), wt.to(dev), b.to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = dw_ops.dw_candidates(n, h, w, c, k, stride, padding, sms)
+    plans.append(plans[0]._replace(grid=1))  # one block walks every tile
+    for kw in (GEMM_EPILOGUES[1], GEMM_EPILOGUES[3]):
+        for pad_value in (-128, 0):
+            kw = dict(kw, stride=stride, padding=padding, pad_value=pad_value)
+            want = dw_int8_plain(x, wt, b, **kw)
+            for plan in plans:
+                got = dw_int8(xd, wd, bd, plan=plan, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (plan, kw)
 
 
 # (n, h, w, cin, ce, cout, k, carry)
@@ -500,8 +567,28 @@ def test_wrappers_raise_instead_of_falling_back(dev):
             buf[4:].view(4, 16), torch.zeros((16, 4), dtype=torch.int8, device=dev),
             torch.zeros(4, dtype=torch.int32, device=dev),
         )
+    # K1 plans and packed weights that do not fit the call
+    x8k = torch.zeros((8, 64), dtype=torch.int8, device=dev)
+    w8k = torch.zeros((64, 16), dtype=torch.int8, device=dev)
+    b16 = torch.zeros(16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="plan does not fit"):
+        int8_gemm(x8k, w8k, b16, plan=gemm_ops.general_plan(8, 64, 16))
+    with pytest.raises(ValueError, match="plan does not fit"):
+        int8_gemm(x8k, w8k, b16, plan=gemm_ops.skinny_plan(8, 64, 8))
+    p16 = gemm_ops.pack_k1_weight(w8k)
+    with pytest.raises(ValueError, match="packed weight data"):
+        int8_gemm(x8k, p16._replace(data=p16.data[:8].contiguous()), b16)
     x24 = torch.zeros((1, 8, 8, 24), dtype=torch.int8, device=dev)
     b24 = torch.zeros(24, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="plan does not fit"):  # tile columns not a whole run
+        dw_int8(x16, torch.zeros((3, 3, 1, 16), dtype=torch.int8, device=dev),
+                torch.zeros(16, dtype=torch.int32, device=dev), padding=1,
+                plan=dw_ops.DwPlan(2, 6, 16, 256, 1))
+    x992 = torch.zeros((1, 4, 16, 992), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="plan does not fit"):  # cb past the loader's division
+        dw_int8(x992, torch.zeros((3, 3, 1, 992), dtype=torch.int8, device=dev),
+                torch.zeros(992, dtype=torch.int32, device=dev), padding=1,
+                plan=dw_ops.DwPlan(1, 16, 992, 19840, 1))
     with pytest.raises(ValueError, match="C % 16"):
         dw_int8(x24, torch.zeros((3, 3, 1, 24), dtype=torch.int8, device=dev), b24, padding=1)
     w16 = torch.zeros((2, 2, 1, 16), dtype=torch.int8, device=dev)
