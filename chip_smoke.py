@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's three main paths -- ResNet-18, MobileNetV2 and ResNet-50
-integer inference at 224x224, full width, 1000 classes -- each in the
-engine's three boundary rungs (strict, `int8_boundary=True`,
-`bf16_boundary=True`), nine forwards, through the entry points a user calls
-(`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
+Drives the port's four main paths -- ResNet-18, MobileNetV2, ResNet-50 and
+MobileNetV1 integer inference at 224x224, full width, 1000 classes -- each
+in the engine's three boundary rungs (strict, `int8_boundary=True`,
+`bf16_boundary=True`), twelve forwards, through the entry points a user
+calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
-from the seed:
+from the seed, and the port's own QAT forward and bake:
 
   build    compile every CUDA kernel from f8net_tpu_torch/csrc, one nvcc per
            source, all at once
@@ -20,7 +20,8 @@ from the seed:
            plain PyTorch versions: logits bitwise equal, launches per
            forward as LAUNCHES_PER_FORWARD in every rung (ResNet-18: 19 K2 +
            1 K3 + 1 K1; MobileNetV2: 1 K2 + 5 K4 + 4 K1 + 7 K7 + 12 K5;
-           ResNet-50: 1 K3 + 19 K2 + 33 K7 + 1 K1), non-degenerate logits,
+           ResNet-50: 1 K3 + 19 K2 + 33 K7 + 1 K1; MobileNetV1: 1 K2 + 13 K4
+           + 13 K7 + 1 K1), non-degenerate logits,
            and every 8-bit operand (K5's internal ones and its requant8
            outputs, the int8 rung's packed carries, included) clamped less
            than MAX_CLAMPED and zero less than MAX_ZERO of the time; logged:
@@ -31,6 +32,17 @@ from the seed:
            1-byte-carry and bf16-output forms; plus K1's requant8 epilogue
            at a 1x1-conv shape) against its plain version on the same
            inputs; K1 on each K7 call, equal to K7
+  bake     ResNet-18 at 224 px, 1000 classes, on the card: Model.init from a
+           seeded torch.Generator, BAKE_TRAIN_STEPS train-mode QAT forwards
+           at batch 8 (the EMA fraclens settle), the reference's BN
+           calibration (BAKE_CALIB_STEPS calib-mode forwards), bake_plan, and
+           the strict engine on the baked plan: every kernel call against
+           its plain version, logits bitwise equal to the plain path's; the
+           same plan through IntEngine(int_only=False) and through the QAT
+           eval forward with int_infer, each within BAKE_ATOL of the integer
+           logits, with top-1 agreement logged; the train-mode forward's
+           wall ms and the baked plan's clamped and zero shares logged, not
+           gated (the weights are random and barely trained)
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
@@ -91,7 +103,7 @@ from f8net_tpu_torch.nn.spec import ConvBNSpec
 from f8net_tpu_torch.ops import _build, conv as conv_ops, dw as dw_ops, gemm as gemm_ops
 from f8net_tpu_torch.ops import conv_flat as flat_ops, gemm_v2 as gemm_v2_ops
 from f8net_tpu_torch.ops import ir_block as ir_ops, stem as stem_ops
-from f8net_tpu_torch.quant import LayerPlan, QuantPlan
+from f8net_tpu_torch.quant import LayerPlan, QuantPlan, bake_plan, reset_bn_for_calib
 from f8net_tpu_torch.utils import QuantConfig
 
 IMAGE_SIZE = 224
@@ -128,6 +140,14 @@ PREV_MS = {
 # every 8-bit operand a forward makes must clamp less and be zero less than
 # this often, or the synthetic calibration leaves the requant paths idle
 MAX_CLAMPED, MAX_ZERO = 0.05, 0.9
+# the bake phase: train-mode forwards (the EMA's initial fraclen keeps
+# 0.9^30 = 4% of its weight) and calib-mode forwards at batch 8
+BAKE_TRAIN_STEPS, BAKE_CALIB_STEPS = 30, 4
+# the float-dtype engine and the QAT int_infer forward carry the integers in
+# float32: they equal the integer logits while every conv's partial sums
+# stay below 2^24; past that a sum rounds at 2^-24 relative, and an 8-bit
+# operand downstream may move one step, which the requants scale back down
+BAKE_ATOL = 2.0**-20
 
 CFG = QuantConfig(
     format_from_metric=True, metric="std", quant_bias=True, quant_avgpool=True,
@@ -182,6 +202,7 @@ LAUNCHES_PER_FORWARD = {
     "mobilenet_v2": {"conv_int8": 1, "dw_int8": 5, "int8_gemm": 4, "int8_gemm_v2": 7,
                      "ir_block": 12},
     "resnet50": {"stem_pool": 1, "conv_int8": 19, "int8_gemm_v2": 33, "int8_gemm": 1},
+    "mobilenet_v1": {"conv_int8": 1, "dw_int8": 13, "int8_gemm_v2": 13, "int8_gemm": 1},
 }
 
 
@@ -217,7 +238,8 @@ def float_forward(model, w_real, b_real, x):
     """The real-valued network the synthetic integer model approximates,
     in float32 on the input's device; `x` is the head's input value, NCHW.
     ReLU follows the head, every body conv but the last, the ResNet residual
-    add and the MobileNetV2 tail; MobileNetV2's project and add have none.
+    add, each MobileNetV1 block and the MobileNetV2 tail; MobileNetV2's
+    project and add have none.
     Returns ({layer: std of its input}, [each block's output], logits)."""
     g, sig, outs = model.graph, {}, []
 
@@ -239,6 +261,10 @@ def float_forward(model, w_real, b_real, x):
             a = v + a if meta.residual else v
             outs.append(a)
         a = F.relu(conv("tail", a))
+    elif model.name == "mobilenet_v1":
+        for meta in model.blocks:
+            a = F.relu(body(meta, a))
+            outs.append(a)
     else:
         a = F.max_pool2d(a, 3, 2, 1)
         for meta in model.blocks:
@@ -607,11 +633,12 @@ def smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def drive(label: str, path: str, eng: IntEngine, images, log_calls: bool = True):
+def drive(label: str, path: str, eng: IntEngine, images, log_calls: bool = True,
+          gate: bool = True):
     """The engine and kernels phases of one forward of `path` on `eng`:
     every kernel call against its plain version, the logits against the
     plain path's, launches against LAUNCHES_PER_FORWARD, the clamp and zero
-    gates.  Returns (logits, launches per forward, [(kernel, args, kwargs,
+    gates (logged only, without `gate`).  Returns (logits, launches per forward, [(kernel, args, kwargs,
     output, max abs err)] of every kernel call of the forward)."""
     x = eng.condition_input(images[:BATCH])
     logits, logits_ref, counts, calls, stats = engine_phase(eng, x)
@@ -632,7 +659,7 @@ def drive(label: str, path: str, eng: IntEngine, images, log_calls: bool = True)
     log(f"{label} engine: logits bitwise equal to the plain path; launches {counts}")
     for name, clamped, zero in stats:
         log(f"  {label} requant -> {name}: clamped {clamped:.4f} zero {zero:.4f}")
-        if clamped >= MAX_CLAMPED or zero >= MAX_ZERO:
+        if gate and (clamped >= MAX_CLAMPED or zero >= MAX_ZERO):
             raise AssertionError(f"{label}: the 8-bit input of {name} is degenerate: clamped "
                                  f"{clamped:.4f} (limit {MAX_CLAMPED}), zero {zero:.4f} "
                                  f"(limit {MAX_ZERO})")
@@ -700,7 +727,7 @@ def block_errors(path, eng, images) -> None:
     w_real = {n: params[n]["w"].float() / 2.0 ** plan[n].weight_fl for n in model.graph.names()}
     b_real = {n: params[n]["b"].float() / 2.0 ** plan[n].out_fl for n in model.graph.names()}
     _, want, _ = float_forward(model, w_real, b_real, head_input(model, images))
-    attr = "block_mbv2" if model.name == "mobilenet_v2" else "block"
+    attr = {"mobilenet_v2": "block_mbv2", "mobilenet_v1": "block_mbv1"}.get(model.name, "block")
     method, got = getattr(eng, attr), []
 
     def hooked(meta, *rest):
@@ -1170,6 +1197,59 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
     return table
 
 
+def bake_phase(seed: int, images, card: str):
+    """The port's own QAT forward and bake on ResNet-18 (see the module
+    docstring), on the images' device.  quant_avgpool without pool fusing:
+    ResNet's QAT forward does not apply the pool-fusing scale (the bake
+    alone folds it into the last conv), so only without it do the QAT
+    int_infer forward and the integer engine compute the same network.
+    Returns (launches per forward, checked kernel calls) of the baked
+    engine's forward."""
+    dev = images.device
+    cfg = CFG.replace(pool_fusing=False)
+    model = get_model("resnet18", cfg, num_classes=1000, image_size=IMAGE_SIZE)
+    params, state = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    def batch(i):  # the wire's conditioning, round(255 x) / 256
+        j = i % (len(images) // BATCH)
+        return torch.round(255.0 * images[j * BATCH:(j + 1) * BATCH]) / 256.0
+
+    history = []
+    with torch.no_grad():
+        for i in range(BAKE_TRAIN_STEPS):
+            _, state = model.apply(params, state, batch(i), mode="train")
+            history.append([round(float(st["input_fl_ema"][0])) for st in state.values()])
+        state = reset_bn_for_calib(state)
+        for i in range(BAKE_CALIB_STEPS):
+            _, state = model.apply(params, state, batch(i), mode="calib")
+    moved = [sum(a != b for a, b in zip(history[i - 1], history[i])) for i in range(1, len(history))]
+    log(f"bake: {BAKE_TRAIN_STEPS} train-mode forwards at batch {BATCH}; layers whose rounded EMA "
+        f"fraclen moved at each step: {moved}")
+    if dev.type == "cuda":
+        ms = time_ms(lambda: model.apply(params, state, batch(0), mode="train"), reps=3, rounds=3)
+        log(f"bake: QAT train-mode forward (autograd on), batch {BATCH}, {IMAGE_SIZE} px: "
+            f"{ms:.3f} ms wall ({card})")
+    plan, int_params = bake_plan(model, params, state)
+    log("bake: fraclens " + " ".join(f"{p.name}={p.input_fl}/{p.weight_fl}" for p in plan.layers))
+    eng = IntEngine(model, plan, int_params, device=dev)
+    logits, counts, checked = drive("resnet18 baked", "resnet18", eng, images, log_calls=False,
+                                    gate=False)
+    x = images[:BATCH]
+    sim = IntEngine(model, plan, int_params, device=dev, int_only=False)
+    xf = sim.condition_input(x)
+    qat, _ = model.apply(params, state, xf, mode="eval", cfg=cfg.replace(int_infer=True))
+    tol = BAKE_ATOL * float(logits.abs().max())
+    for what, other in (("IntEngine(int_only=False)", sim(xf)),
+                        ("QAT eval forward with int_infer", qat * 2.0**plan["classifier"].out_fl)):
+        err = float((other - logits).abs().max())
+        agree = float((other.argmax(1) == logits.argmax(1)).double().mean())
+        log(f"bake: {what} against the integer logits: largest difference {err} (limit {tol}), "
+            f"top-1 agreement {agree:.3f}")
+        if not err <= tol:
+            raise AssertionError(f"bake: {what} parts from the integer engine by {err} > {tol}")
+    return counts, checked
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1226,6 +1306,10 @@ def main(argv=None) -> int:
     extra_kw = dict(epilogue="requant8", net=9, out_signed=False)
     extra_out, _ = compare("int8_gemm", extra, extra_kw)
     log(f"kernel int8_gemm {describe(extra, extra_kw)}: equal to its plain version")
+
+    bake_counts, bake_calls = bake_phase(args.seed, images, card)
+    log(f"resnet18 baked: all {len(bake_calls)} kernel calls equal to their plain versions; "
+        f"launches {bake_counts}")
 
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")

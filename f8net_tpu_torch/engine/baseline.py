@@ -39,7 +39,8 @@ def plain_params(model, int_params, dtype=torch.bfloat16):
 def plain_forward(model, fparams, x, dtype=torch.bfloat16):
     """Conv + bias + ReLU of the same graph in `dtype` (no quant op
     anywhere); x NHWC -> float32 logits.  The block structure is the JAX
-    baseline's, ReLU after a non-residual MobileNetV2 block included."""
+    baseline's: a ReLU ends every block that has neither shortcut nor
+    residual add (MobileNetV1's, MobileNetV2's non-residual ones)."""
     g = model.graph
     v = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
@@ -60,7 +61,7 @@ def plain_forward(model, fparams, x, dtype=torch.bfloat16):
         if hasattr(meta, "shortcut"):
             s = v_in if meta.shortcut is None else conv(meta.shortcut, v_in)
             v = F.relu(v + s)
-        elif meta.residual:
+        elif getattr(meta, "residual", False):
             v = v + v_in
         else:
             v = F.relu(v)

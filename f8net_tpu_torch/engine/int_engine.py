@@ -1,6 +1,6 @@
 """Integer-only inference engine -- the port of
-`f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`) for ResNets and
-MobileNetV2, in its three boundary rungs:
+`f8net_tpu/engine/int_engine.py` (`IntEngine` `:1456`) for ResNets,
+MobileNetV2 and MobileNetV1, in its three boundary rungs:
   * strict (the default): block boundaries carry exact int32 accumulators;
   * int8-boundary (`int8_boundary=True`, `:1459-1490`): every block output
     is requantized once onto the next block's first conv's 8-bit grid and
@@ -63,7 +63,17 @@ form):
   * the tail (1x1 to 1280, int32 + ReLU) in K7; in the bf16 rung its ReLU
     stays fused before the conversion to bf16, with which it commutes.
 
-Both: the classifier in K1 (ops.gemm) on weights packed at construction,
+MobileNetV1 (`_forward`'s MobileNetV1 branch `:1362-1366`, `_block_mbv1_int`
+`:1092-1100`): a straight chain in which every conv packs its output for its
+unique consumer -- the head in K2 as MobileNetV2's (input channels padded
+to 16), each block's depthwise conv in K4 and its pointwise conv in K7 (or
+K1 where K7 does not take the GEMM) -- but for the last block's pointwise
+conv, which keeps int32 with its ReLU fused for the pool.  The reference's
+MobileNetV1 branch has no pack target, so its int8 rung is the strict
+forward, and its bf16 rung differs only in that last output, emitted in
+bf16 (its ReLU commutes with the conversion).
+
+All: the classifier in K1 (ops.gemm) on weights packed at construction,
 int32 epilogue, logits float32.  The glue -- the input pack, the pack of a
 carry for the next conv, the conversions of the relaxed rungs, the aligned
 wrapping residual add (or the bf16 add), ReLU and the average pool
@@ -76,6 +86,13 @@ bf16 rung up to the average pool, whose f32 sum may take its terms in
 another order than XLA's, and with every bf16 value rounded where the
 reference's code rounds it (XLA may otherwise keep a fused bf16 value in
 float32: its `xla_allow_excess_precision`).
+
+`IntEngine(int_only=False)` is the reference's float-dtype cross-check
+("integize", `float_sim_forward` `:1214`, `:1417-1452`): the same integer
+values carried in float32 through F.conv2d and a float32 matmul (full
+float32 on the card, `utils.float32_exact`), with no kernel and no packing.
+It equals the integer engine while every float32 partial sum stays below
+2^24, and its logits stay on the 2^out_fl integer grid.
 """
 
 from __future__ import annotations
@@ -86,6 +103,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.pool import avgpool_shift_for
+from ..nn.quant_layers import conv2d_nhwc, matmul_f32, maxpool
 from ..nn.spec import ConvBNSpec, LinearSpec
 from ..ops import conv as _conv
 from ..ops import dw as _dw
@@ -161,18 +179,21 @@ class IntEngine:
 
     device: where the engine runs; "cuda" (the default) raises when there is
     no card.  int8_boundary / bf16_boundary: the relaxed rung (at most one);
-    neither is the strict rung."""
+    neither is the strict rung.  int_only=False: the float-dtype
+    cross-check (module docstring), strict rung only."""
 
     def __init__(self, model, plan, int_params, cfg=None, device="cuda",
-                 int8_boundary: bool = False, bf16_boundary: bool = False):
+                 int8_boundary: bool = False, bf16_boundary: bool = False,
+                 int_only: bool = True):
         if int8_boundary and bf16_boundary:
             raise ValueError("int8_boundary and bf16_boundary exclude each other")
+        if not int_only and (int8_boundary or bf16_boundary):
+            raise ValueError("the boundary rungs need the integer engine (int_only=True)")
         self.int8_boundary, self.bf16_boundary = int8_boundary, bf16_boundary
+        self.int_only = int_only
         self.device = resolve_device(device)
-        if not (model.name.startswith("resnet") or model.name == "mobilenet_v2"):
-            raise NotImplementedError(
-                f"{model.name}: no engine path is ported yet (ROADMAP item 7)"
-            )
+        if not (model.name.startswith("resnet") or model.name in ("mobilenet_v2", "mobilenet_v1")):
+            raise NotImplementedError(f"{model.name}: no engine path for this family")
         self.model = model
         self.graph = model.graph
         self.plan = plan
@@ -181,6 +202,9 @@ class IntEngine:
             name: {k: v.to(self.device) for k, v in entry.items()}
             for name, entry in int_params.items()
         }
+        if not int_only:
+            self.params = params
+            return
         self.params = add_zero_point_bias(self.graph, plan, params)
         # the layers of MobileNetV2 blocks that run whole in K5
         self._in_k5 = {
@@ -208,7 +232,7 @@ class IntEngine:
             pack = _gemm_v2.pack_gemm_weight if self.on_k7(name) else _gemm.pack_k1_weight
             self._packed[name] = pack(w)
         self._packed["classifier"] = _gemm.pack_k1_weight(self.params["classifier"]["w"])
-        if model.name == "mobilenet_v2":
+        if model.name.startswith("mobilenet"):
             w = self.params["head"]["w"]
             cpad = -w.shape[2] % 16
             self._packed["head"] = _conv.pack_conv_weight(F.pad(w, (0, 0, 0, cpad)))
@@ -228,12 +252,16 @@ class IntEngine:
     # -- input -------------------------------------------------------------
 
     def condition_input(self, images) -> torch.Tensor:
-        """Reference input conditioning (`int_engine.py:1563-1576`): images
+        """Reference input conditioning (`int_engine.py:1563-1579`): images
         in [0, 1], NHWC float -> the engine's wire input on its device:
         round(255 * image) as uint8 (unnormalized pipeline), or the head's
-        8-bit signed grid as int8 (normalized pipeline)."""
+        8-bit signed grid as int8 (normalized pipeline).  The float-dtype
+        engine takes float32: round(255 * image) / 256, or the normalized
+        image itself (quantized inside the forward)."""
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         head = self.plan["head"]
+        if not self.int_only:
+            return images if self.cfg.normalize else torch.round(255.0 * images) / 256.0
         if self.cfg.normalize:
             q, _ = fix_quant(images, 8, float(head.input_fl), 3, head.input_symmetric)
             return torch.round(q * 2.0**head.input_fl).to(torch.int8)
@@ -483,6 +511,27 @@ class IntEngine:
             next_consumer = pack_target
         return self.conv_int(meta.body[-1], v, pack_output_for=next_consumer)
 
+    def block_mbv1(self, meta, a: IAct, next_consumer: Optional[str]) -> IAct:
+        """Depthwise-separable block (`_block_mbv1_int`,
+        `int_engine.py:1092-1100`): the depthwise output packed for the
+        pointwise conv, the pointwise output for the next block's depthwise;
+        the block's ReLU is the next conv's unsigned requant clamp.  The last
+        block keeps int32 (bf16 in the bf16 rung) with its ReLU fused into
+        the product, for the pool."""
+        a = self.conv_int(meta.body[0], a, pack_output_for=meta.body[1])
+        if next_consumer is not None:
+            return self.conv_int(meta.body[1], a, pack_output_for=next_consumer)
+        return self.conv_int(meta.body[1], a, relu=True)
+
+    def features_mbv1(self, x: torch.Tensor) -> IAct:
+        """Head and blocks (`int_engine.py:1362-1366`), every output packed
+        for its unique consumer but the last block's."""
+        blocks = self.model.blocks
+        a = self.head_conv(x, blocks[0].body[0])
+        for meta, nxt in zip(blocks, [m.body[0] for m in blocks[1:]] + [None]):
+            a = self.block_mbv1(meta, a, nxt)
+        return a
+
     def features_mbv2(self, x: torch.Tensor) -> IAct:
         """Head, blocks and tail (`int_engine.py:1367-1381`): a block's
         output is packed for the next block's first conv unless that block
@@ -527,11 +576,91 @@ class IntEngine:
             b = torch.zeros(p["w"].shape[1], dtype=torch.int32, device=self.device)
         return self._gemm(a.x, self._packed["classifier"], b, epilogue="int32").to(torch.float32)
 
+    # -- the float-dtype cross-check (int_only=False) ------------------------
+
+    def conv_sim(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A real-valued input quantized onto the layer's 8-bit grid, the
+        conv on integer-valued float32 operands plus the bias, clipped to
+        the int32 range and rescaled (`_Walker.conv_sim`, `:1035-1047`)."""
+        pl, spec = self.plan[name], self.graph[name]
+        q, _ = fix_quant(x, 8, float(pl.input_fl), x.ndim - 1, pl.input_symmetric)
+        xi = torch.round(q * 2.0**pl.input_fl)
+        p = self.params[name]
+        y = conv2d_nhwc(xi, p["w"].to(torch.float32), spec) + p["b"].to(torch.float32)
+        return torch.clamp(y, -float(INT32_MAX), float(INT32_MAX)) / 2.0**pl.out_fl
+
+    @staticmethod
+    def add_sim(res, res_fl: int, x, x_fl: int):
+        """Residual add on the larger fraclen's grid, saturated to the int32
+        range (`_Walker.add_sim`, `:1049-1053`)."""
+        out_fl = max(res_fl, x_fl)
+        scale = 2.0**out_fl
+        s = torch.clamp(res * scale + x * scale, -float(INT32_MAX), float(INT32_MAX))
+        return s / scale, out_fl
+
+    def block_sim(self, meta, x, fl: int):
+        """One block of any family (`_block_resnet_sim` `:1076`,
+        `_block_mbv1_sim` `:1103`, `_block_mbv2_sim`): a ReLU before every
+        body conv but the first; the residual add (ResNet: and its ReLU);
+        MobileNetV1 ends in a ReLU."""
+        x_in, fl_in = x, fl
+        for i, name in enumerate(meta.body):
+            if i > 0:
+                x = x.clamp_min(0.0)
+            x = self.conv_sim(name, x)
+        fl = self.plan[meta.body[-1]].out_fl
+        if hasattr(meta, "shortcut"):
+            if meta.shortcut is None:
+                s, s_fl = x_in, fl_in
+            else:
+                s, s_fl = self.conv_sim(meta.shortcut, x_in), self.plan[meta.shortcut].out_fl
+            x, fl = self.add_sim(x, fl, s, s_fl)
+            return x.clamp_min(0.0), fl
+        if getattr(meta, "residual", False):
+            return self.add_sim(x, fl, x_in, fl_in)
+        if self.model.name == "mobilenet_v1":
+            x = x.clamp_min(0.0)
+        return x, fl
+
+    def float_sim(self, x: torch.Tensor) -> torch.Tensor:
+        """The float-dtype forward (`int_engine.py:1417-1452`): conditioned
+        float input -> logits on the classifier's 2^out_fl integer grid."""
+        head = self.plan["head"]
+        if self.cfg.normalize:
+            q, _ = fix_quant(x, 8, float(head.input_fl), 3, head.input_symmetric)
+            xi = torch.round(q * 2.0**head.input_fl)
+        else:
+            xi = torch.round(x * 2.0**head.input_fl)
+        p = self.params["head"]
+        hx = conv2d_nhwc(xi, p["w"].to(torch.float32), self.graph["head"])
+        hx = torch.clamp(hx + p["b"].to(torch.float32), -float(INT32_MAX), float(INT32_MAX))
+        hx, fl = (hx / 2.0**head.out_fl).clamp_min(0.0), head.out_fl
+        if self.model.name.startswith("resnet"):
+            hx = maxpool(hx, 3, 2, 1).x
+        for meta in self.model.blocks:
+            hx, fl = self.block_sim(meta, hx, fl)
+        if self.model.name == "mobilenet_v2":
+            hx = self.conv_sim("tail", hx).clamp_min(0.0)
+        if self.cfg.quant_avgpool:
+            hx = hx.sum((1, 2)) / 2.0 ** avgpool_shift_for(self.model.pool_kernel)
+        else:
+            hx = hx.mean((1, 2))
+        pl, p = self.plan["classifier"], self.params["classifier"]
+        q, _ = fix_quant(hx, 8, float(pl.input_fl), 1, pl.input_symmetric)
+        y = matmul_f32(torch.round(q * 2.0**pl.input_fl), p["w"].to(torch.float32))
+        if "b" in p:
+            y = y + p["b"].to(torch.float32)
+        return torch.clamp(y, -float(INT32_MAX), float(INT32_MAX))
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Conditioned input (condition_input's output) -> float32 logits."""
         x = x.to(self.device)
+        if not self.int_only:
+            return self.float_sim(x)
         if self.model.name == "mobilenet_v2":
             a = self.features_mbv2(x)
+        elif self.model.name == "mobilenet_v1":
+            a = self.features_mbv1(x)
         else:
             blocks = self.model.blocks
             a = self.head(x)

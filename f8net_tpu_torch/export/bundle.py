@@ -7,7 +7,9 @@ files the JAX package writes and reads, so a model baked there serves here.
 `params_from_numpy` is the one door through which weights enter the port:
 plain `(name, input_fl, weight_fl, input_symmetric)` records and numpy
 arrays, exactly what the JAX `bake_plan` produces after `np.asarray`, become
-the port's `QuantPlan` and tensors on the chosen device.
+the port's `QuantPlan` and tensors on the chosen device.  `qat_from_numpy`
+and `qat_to_numpy` carry the QAT forward's (params, state) across in both
+directions, as the reference's pytrees of float32 arrays.
 """
 
 from __future__ import annotations
@@ -56,10 +58,46 @@ def params_from_numpy(
     return plan, params
 
 
+def qat_from_numpy(params_np, state_np, device="cuda"):
+    """The reference's QAT pytrees as numpy -- {layer: {'w': HWIO conv or
+    (in, out) linear, 'alpha', 'gamma', 'beta', 'bias'}} and {layer:
+    {'bn_mean', 'bn_var', 'bn_count', 'input_fl_ema'}}, every leaf float32
+    -- -> the port's (params, state) on `device`, values and shapes as
+    given."""
+    dev = resolve_device(device)
+
+    def convert(tree, what):
+        out = {}
+        for lname, entry in tree.items():
+            d = {}
+            for key, arr in entry.items():
+                arr = np.asarray(arr)
+                if arr.dtype != np.float32:
+                    raise TypeError(f"{what} {lname}/{key}: expected float32, got {arr.dtype}")
+                d[key] = torch.tensor(arr).to(dev)
+            out[lname] = d
+        return out
+
+    return convert(params_np, "params"), convert(state_np, "state")
+
+
+def qat_to_numpy(params, state):
+    """qat_from_numpy's inverse: (params, state) -> numpy float32 pytrees."""
+
+    def convert(tree):
+        return {
+            lname: {key: t.detach().cpu().numpy() for key, t in entry.items()}
+            for lname, entry in tree.items()
+        }
+
+    return convert(params), convert(state)
+
+
 def _block_entry(meta) -> dict:
     """A block's topology record, as the JAX writer makes it
     (`f8net_tpu/export/bundle.py:49-55`): ResNet blocks carry `shortcut`,
-    MobileNetV2 blocks `residual`; each family's missing field is derived."""
+    MobileNetV2 blocks `residual`; each family's missing field is derived
+    (MobileNetV1's blocks have neither: no shortcut, not residual)."""
     shortcut = getattr(meta, "shortcut", None)
     residual = getattr(meta, "residual", getattr(meta, "shortcut", 1) is None)
     return {"body": list(meta.body), "shortcut": shortcut, "residual": bool(residual)}

@@ -1,4 +1,5 @@
 from .base import Model
+from .mobilenet_v1 import build_mobilenet_v1
 from .mobilenet_v2 import build_mobilenet_v2
 from .resnet import build_resnet
 
@@ -7,9 +8,8 @@ def get_model(name: str, cfg, num_classes: int = 1000, image_size: int = 224) ->
     """Model registry keyed by the reference's vocabulary
     (`f8net_tpu/models/__init__.py:get_model`).
 
-    The global-avgpool extent is image_size // 32.  The ResNet and
-    MobileNetV2 graphs are ported; MobileNetV1 comes with its engine path
-    (ROADMAP item 7)."""
+    All three families reduce spatially by 32x, so the global-avgpool
+    extent is image_size // 32."""
     pool_kernel = max(image_size // 32, 1)
     name = name.split(".")[-1]
     if name in ("fix_resnet", "resnet"):
@@ -22,10 +22,8 @@ def get_model(name: str, cfg, num_classes: int = 1000, image_size: int = 224) ->
     if name in ("fix_mobilenet_v2", "mobilenet_v2", "mobilenetv2"):
         return build_mobilenet_v2(cfg, num_classes=num_classes, pool_kernel=pool_kernel)
     if name in ("fix_mobilenet_v1", "mobilenet_v1", "mobilenetv1"):
-        raise NotImplementedError(
-            f"{name}: the MobileNetV1 graph is not ported yet (ROADMAP item 7)"
-        )
+        return build_mobilenet_v1(cfg, num_classes=num_classes, pool_kernel=pool_kernel)
     raise ValueError(f"unknown model {name!r}")
 
 
-__all__ = ["Model", "build_mobilenet_v2", "build_resnet", "get_model"]
+__all__ = ["Model", "build_mobilenet_v1", "build_mobilenet_v2", "build_resnet", "get_model"]

@@ -1,21 +1,34 @@
-"""Model container: the static layer graph and its block metadata
-(the graph half of `f8net_tpu/models/base.py:Model`).
+"""Model container: the static layer graph, its block metadata and the QAT
+forward (the port of `f8net_tpu/models/base.py:Model`).
 
-The port has no float `init` or `forward` yet: those come with QAT
-(ROADMAP item 10).  The integer engine needs only the graph.
+The integer engine needs only the graph; `init` and `apply` drive the QAT
+forward (nn/quant_layers.py), whose trained (params, state) `bake_plan`
+turns into the engine's plan.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
-from ..nn.spec import LayerGraph
+import torch
+
+from ..nn.quant_layers import (
+    init_conv_params, init_conv_state, init_linear_params, init_linear_state,
+)
+from ..nn.spec import ConvBNSpec, LayerGraph, LinearSpec
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class Model:
-    """A built model: immutable graph plus the walk order the engine uses."""
+    """A built model: immutable graph plus the walk order the engine uses.
+
+    forward(params, state, x, mode='eval', cfg=None) -> (logits, new state):
+    mode is 'train', 'eval' or 'calib'; cfg defaults to the build's and may
+    be overridden per call (int_infer for the integer-simulation eval) as
+    long as its structural knobs (normalize, format_type, pool_fusing)
+    match the build."""
 
     name: str
     graph: LayerGraph
@@ -26,3 +39,26 @@ class Model:
     blocks: Any = None  # per-block metadata (body conv names; shortcut or residual flag)
     pool_fuse_layer: Optional[str] = None  # conv that absorbs 2^s/k^2 at int conversion
     pool_kernel: int = 7  # global-avgpool extent (image_size // 32)
+    forward: Optional[Callable] = None
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """(params, state) with the reference's distributions, every layer's
+        weights drawn in graph order from `generator` (on its own device)
+        and placed on `device` ("cuda", the default, raises without a card).
+        jax.random's draws cannot be matched bit for bit: carry a JAX init
+        across with export.qat_from_numpy."""
+        device = resolve_device(device)
+        params, state = {}, {}
+        for lname in self.graph.names():
+            spec = self.graph[lname]
+            if isinstance(spec, ConvBNSpec):
+                params[lname] = init_conv_params(generator, spec, device)
+                state[lname] = init_conv_state(self.cfg, spec, device)
+            elif isinstance(spec, LinearSpec):
+                params[lname] = init_linear_params(generator, spec, device)
+                state[lname] = init_linear_state(self.cfg, spec, device)
+        return params, state
+
+    def apply(self, params, state, x, mode: str = "eval", cfg=None):
+        """QAT forward of NHWC float images x -> (logits, new state)."""
+        return self.forward(params, state, x, mode, cfg or self.cfg)

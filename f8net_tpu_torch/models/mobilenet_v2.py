@@ -1,12 +1,11 @@
-"""MobileNetV2 layer graph (the graph construction of
-`f8net_tpu/models/mobilenet_v2.py:45-180`).
+"""MobileNetV2 (the port of `f8net_tpu/models/mobilenet_v2.py`).
 
 The graph is the reference's: a 3x3/2 quantized head to 32 channels,
 inverted-residual blocks [t, c, n, s] as `BLOCK_SETTING`, where the first
 conv of every block past stage 0 takes a signed (double-side) input because
 project outputs are not ReLU'd, master linkage across residual chains, a 1x1
-tail conv to 1280 channels that carries the pool-fusing scale, and a linear
-classifier.  Blocks have no post-add ReLU.
+tail conv to 1280 channels that carries the pool-fusing scale (in QAT too,
+unlike ResNet), and a linear classifier.  Blocks have no post-add ReLU.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import dataclasses
 from typing import List, NamedTuple, Optional
 
 from ..nn.pool import avgpool_scale_for
+from ..nn.quant_layers import Act, adaptive_avgpool, fxq_avgpool, residual_add_int_sim
+from ..nn.runner import Runner
 from ..nn.spec import ConvBNSpec, LayerGraph, LinearSpec
 from .base import Model
 
@@ -99,9 +100,30 @@ def build_mobilenet_v2(cfg, num_classes: int = 1000, pool_kernel: int = 7) -> Mo
     conv_order.append("classifier")
     specs["tail"] = dataclasses.replace(specs["tail"], following="classifier")
 
+    graph = LayerGraph(specs)
+
+    def forward(params, state, x, mode="eval", run_cfg=None):
+        c = run_cfg or cfg
+        r = Runner(graph, c, params, state, mode)
+        a = r.relu(r.conv("head", Act(x)))
+        for meta in blocks:
+            if meta.residual and c.qat_boundary == "int8" and not r.int_sim:
+                # deployment-aware QAT: the residual carry lives on the block's
+                # first conv's 8-bit grid, as the int8-boundary engine's does
+                a = r.boundary_quant(meta.body[0], a)
+            a_in = a
+            for cname in meta.body:
+                a = r.conv(cname, a)
+            if meta.residual:
+                a = residual_add_int_sim(a, a_in) if r.int_sim else Act(a.x + a_in.x, None)
+        a = r.relu(r.conv("tail", a))
+        a = fxq_avgpool(a, pool_kernel) if c.quant_avgpool else adaptive_avgpool(a)
+        a = r.linear("classifier", a)
+        return a.x, r.finalize()
+
     return Model(
         name="mobilenet_v2",
-        graph=LayerGraph(specs),
+        graph=graph,
         cfg=cfg,
         block_setting=BLOCK_SETTING,
         conv_order=conv_order,
@@ -109,4 +131,5 @@ def build_mobilenet_v2(cfg, num_classes: int = 1000, pool_kernel: int = 7) -> Mo
         blocks=blocks,
         pool_fuse_layer="tail" if pool_fuse else None,
         pool_kernel=pool_kernel,
+        forward=forward,
     )

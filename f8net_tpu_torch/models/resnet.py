@@ -1,12 +1,11 @@
-"""ResNet-18/34/50/101/152 layer graphs (the graph construction of
-`f8net_tpu/models/resnet.py:60-170`).
+"""ResNet-18/34/50/101/152 (the port of `f8net_tpu/models/resnet.py`).
 
 The graph is the reference's: a 7x7/2 quantized head (weight-only when
 inputs are unnormalized, signed double-side when normalized), Basic or
 Bottleneck residual stages with master linkage across each residual chain,
 following-layer wiring for the cross-layer BN-fold scale, and a linear
 classifier.  The pool-fusing scale is applied at integer conversion to the
-last block's last body conv (`Model.pool_fuse_layer`).
+last block's last body conv (`Model.pool_fuse_layer`), not during QAT.
 """
 
 from __future__ import annotations
@@ -14,6 +13,10 @@ from __future__ import annotations
 import dataclasses
 from typing import List, NamedTuple, Optional
 
+from ..nn.quant_layers import (
+    Act, adaptive_avgpool, fxq_avgpool, fxq_maxpool, maxpool, residual_add_int_sim,
+)
+from ..nn.runner import Runner
 from ..nn.spec import ConvBNSpec, LayerGraph, LinearSpec
 from .base import Model
 
@@ -121,9 +124,24 @@ def build_resnet(
     for t in prev_tail:
         specs[t] = dataclasses.replace(specs[t], following="classifier")
 
+    graph = LayerGraph(specs)
+
+    def forward(params, state, x, mode="eval", run_cfg=None):
+        c = run_cfg or cfg
+        r = Runner(graph, c, params, state, mode)
+        a = r.relu(r.conv("head", Act(x)))
+        # quant_maxpool: the reference's zero-padding pool, the same values on
+        # the non-negative post-ReLU input
+        a = fxq_maxpool(a, 3, 2, 1) if c.quant_maxpool else maxpool(a, 3, 2, 1)
+        for meta in blocks:
+            a = _block_forward(r, meta, a)
+        a = fxq_avgpool(a, pool_kernel) if c.quant_avgpool else adaptive_avgpool(a)
+        a = r.linear("classifier", a)
+        return a.x, r.finalize()
+
     return Model(
         name=f"resnet{depth}",
-        graph=LayerGraph(specs),
+        graph=graph,
         cfg=cfg,
         block_setting=setting,
         conv_order=conv_order,
@@ -133,4 +151,21 @@ def build_resnet(
             last_block.body[-1] if (cfg.quant_avgpool and cfg.pool_fusing) else None
         ),
         pool_kernel=pool_kernel,
+        forward=forward,
     )
+
+
+def _block_forward(r: Runner, meta: BlockMeta, a_in: Act) -> Act:
+    """Basic or Bottleneck block: no explicit ReLU between body convs (the
+    next conv's unsigned input quantization is the ReLU), one after the
+    residual add."""
+    if r.cfg.qat_boundary == "int8" and not r.int_sim:
+        # deployment-aware QAT: the block input lives on body.0's 8-bit grid,
+        # as the int8-boundary engine's 1-byte carry does
+        a_in = r.boundary_quant(meta.body[0], a_in)
+    a = a_in
+    for cname in meta.body:
+        a = r.conv(cname, a)
+    s = a_in if meta.shortcut is None else r.conv(meta.shortcut, a_in)
+    a = residual_add_int_sim(a, s) if r.int_sim else Act(a.x + s.x, None)
+    return r.relu(a)

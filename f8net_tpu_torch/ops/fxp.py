@@ -1,7 +1,8 @@
-"""Fixed-point primitives of the integer engine (the port of
-`f8net_tpu/ops/fxp.py`: `fix_quant` forward at `:52-85`, `shift_requant`
-integer form at `:112-155`), and the two conversions of the relaxed
-boundary rungs between an int32 accumulator or an 8-bit operand and a bf16
+"""Fixed-point primitives (the port of `f8net_tpu/ops/fxp.py`: `fix_quant`
+at `:52-85`, `ste_quant` at `:88-110`, `shift_requant` integer form at
+`:112-155`, `metric2fraclen` at `:248`, `fraclen_gridsearch` at `:265` and
+`metric_fn` at `:281`), and the two conversions of the relaxed boundary
+rungs between an int32 accumulator or an 8-bit operand and a bf16
 real value (`f8net_tpu/engine/int_engine.py`: `_emit` `:817-821`,
 `pack_for`'s scaled branch `:469-479`).
 
@@ -24,6 +25,11 @@ from __future__ import annotations
 import torch
 
 INT32_MAX = (1 << 31) - 1
+# Coefficient tables of F8Net's semi-empirical sigma -> fraclen rule (copy of
+# f8net_tpu/ops/fxp.py:34-35): the optimal fraclen of a (rectified) Gaussian
+# tensor is about log2(coeff / metric)
+SIGNED_COEFF = {"std": 40.0, "mae": 30.0, "rms": 40.0}
+UNSIGNED_COEFF = {"std": 70.0, "mae": 30.0, "rms": 50.0}
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -81,15 +87,19 @@ def _broadcast_fl(fl, x: torch.Tensor, axis: int) -> torch.Tensor:
     return fl.reshape(fl.shape + (1,) * (x.ndim - axis - 1))
 
 
-def fix_quant(x: torch.Tensor, wl: int = 8, fl=0, axis: int = 0, signed: bool = True):
+def fix_quant(x: torch.Tensor, wl: int = 8, fl=0, axis: int = 0, signed: bool = True,
+              floating: bool = False):
     """Simulated fixed-point quantization (forward only).
 
-    Scales by 2^fl, rounds half-to-even, clamps to the symmetric signed range
-    or the unsigned range [0, 2^wl-1], and scales back.  Returns
-    (quantized, mask); mask is True where the value was not clipped (and,
-    unsigned, strictly positive)."""
+    Scales by 2^fl, rounds half-to-even (skipped when `floating`: the
+    clip-only baseline), clamps to the symmetric signed range or the
+    unsigned range [0, 2^wl-1], and scales back.  Returns (quantized, mask);
+    mask is True where the value was not clipped (and, unsigned, strictly
+    positive): where the straight-through gradient passes."""
     scale = torch.exp2(_broadcast_fl(fl, x, axis))
-    res = torch.round(x * scale)
+    res = x * scale
+    if not floating:
+        res = torch.round(res)
     if signed:
         bound = float(2 ** (wl - 1) - 1)
         mask = res.abs() < bound
@@ -99,6 +109,77 @@ def fix_quant(x: torch.Tensor, wl: int = 8, fl=0, axis: int = 0, signed: bool = 
         mask = (res > 0) & (res < bound)
         res = res.clamp(0.0, bound)
     return res / scale, mask
+
+
+class _SteQuant(torch.autograd.Function):
+    """fix_quant forward; backward the cotangent times the clip mask, no
+    gradient to the fraclen (f8net_tpu/ops/fxp.py:_ste_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, fl, wl, axis, signed, floating):
+        res, mask = fix_quant(x, wl, fl, axis, signed, floating)
+        ctx.save_for_backward(mask)
+        return res
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return g * mask.to(g.dtype), None, None, None, None, None
+
+
+def ste_quant(x: torch.Tensor, fl, wl: int = 8, axis: int = 0, signed: bool = True,
+              floating: bool = False) -> torch.Tensor:
+    """fix_quant with a straight-through-estimator gradient: it flows only
+    through elements that were not clipped (and, unsigned, were > 0)."""
+    return _SteQuant.apply(x, fl, wl, axis, signed, floating)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Square root rounded to nearest in x's float32, as IEEE (and XLA's)
+    sqrt is: taken in float64 and rounded once to float32, which is exact
+    rounding for float32 inputs.  torch's vectorized CPU sqrt is not
+    correctly rounded (off by one ulp at about 0.7% of random inputs), and
+    a BN scale or a std one ulp off moves a folded weight across a
+    rounding boundary."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def metric2fraclen(metric, metric_name: str = "std", n: float = 1.0,
+                   signed: bool = True) -> torch.Tensor:
+    """F8Net's statistics -> fraclen rule: floor(log2(coeff * n / metric)),
+    clipped to [0, 8 - signed]; coeff from SIGNED_COEFF / UNSIGNED_COEFF.
+    The quotient is float32, as the reference's; its log2 is taken in
+    float64, so the floor is exact: float32 log2s (torch's and XLA's alike)
+    can round a quotient one ulp below a power of two up to it, or one
+    above down to it."""
+    coeff = (SIGNED_COEFF if signed else UNSIGNED_COEFF)[metric_name]
+    q = coeff * n / metric
+    fl = torch.floor(torch.log2(q.to(torch.float64))).to(q.dtype)
+    return fl.clamp(0.0, float(8 - int(signed)))
+
+
+def fraclen_gridsearch(x: torch.Tensor, wl: int = 8, axis: int = 0,
+                       signed: bool = True) -> torch.Tensor:
+    """The first fraclen in [0, wl - signed] with the least RMS error of
+    quantizing x, as a float32 scalar."""
+    errs = [
+        sqrt_rn(torch.mean((x - fix_quant(x, wl, float(fl), axis, signed)[0]) ** 2))
+        for fl in range(wl + 1 - int(signed))
+    ]
+    return torch.argmin(torch.stack(errs)).to(torch.float32)
+
+
+def metric_fn(name: str, axes):
+    """The statistic metric2fraclen reads, reduced over `axes`; std is the
+    sample standard deviation (ddof 1), as torch.std and the reference's."""
+    axes = tuple(axes)
+    if name == "std":
+        return lambda x: sqrt_rn(torch.var(x, dim=axes, correction=1))
+    if name == "mae":
+        return lambda x: torch.mean(torch.abs(x), dim=axes)
+    if name == "rms":
+        return lambda x: sqrt_rn(torch.mean(x**2, dim=axes))
+    raise NotImplementedError(f"metric {name!r}")
 
 
 def to_real_bf16(y: torch.Tensor, fl: int) -> torch.Tensor:

@@ -1,3 +1,4 @@
-from .plan import LayerPlan, QuantPlan
+from .calibrate import reset_bn_for_calib
+from .plan import LayerPlan, QuantPlan, bake_plan, folded_weight_bias
 
-__all__ = ["LayerPlan", "QuantPlan"]
+__all__ = ["LayerPlan", "QuantPlan", "bake_plan", "folded_weight_bias", "reset_bn_for_calib"]

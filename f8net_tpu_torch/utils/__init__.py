@@ -1,4 +1,4 @@
 from .config import QuantConfig
-from .device import resolve_device
+from .device import float32_exact, resolve_device
 
-__all__ = ["QuantConfig", "resolve_device"]
+__all__ = ["QuantConfig", "float32_exact", "resolve_device"]

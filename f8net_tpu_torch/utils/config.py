@@ -2,9 +2,8 @@
 
 The port keeps the reference's flag vocabulary unchanged so that a config
 that drives the JAX package drives the port too.  The integer engine reads
-`normalize` and `quant_avgpool`; the ResNet graph also reads `pool_fusing`.
-The other fields belong to QAT and baking, which the port does not have
-yet.
+`normalize` and `quant_avgpool`, the graphs `pool_fusing`; the other fields
+steer the QAT forward (nn/quant_layers.py) and the bake (quant/plan.py).
 """
 
 from __future__ import annotations

@@ -7,6 +7,8 @@ CPU runs only when the caller asks for it, as the tests do.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,19 @@ def resolve_device(device="cuda") -> torch.device:
             "PyTorch versions of the kernels on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def float32_exact():
+    """Within the block, float32 convolutions and matmuls on the card run in
+    full float32, not TF32, whatever a caller set globally; the caller's
+    settings come back on exit.  The QAT forward needs it: TF32 would move
+    the batch statistics its fraclens come from."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

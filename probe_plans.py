@@ -2,7 +2,7 @@
 """Time K1, K4, K5 and K7 under every plan their planners consider, on one
 card.
 
-    python3 probe_plans.py [--batch 8] [--seed 0]
+    python3 probe_plans.py [--batch 8] [--seed 0] [--only k1k4,k4parts,k5,k7,mbv1]
 
 For each distinct K5 call of MobileNetV2 (224 px) in the form each engine
 rung gives it (strict: int32 carry and output; int8-boundary: 1-byte carry,
@@ -23,7 +23,10 @@ Then K4 at MobileNetV2's five calls at batch 8 under plan_dw's plans with
 parts of csrc/dw_conv.cu cut out -- the epilogue's arithmetic, the
 multiply-adds (and with them the epilogue, whose inputs become constants),
 the halo copies -- each variant built with nvcc into f8net_tpu_torch/_build/:
-where the kernel's time goes.
+where the kernel's time goes.  K4 and K7 at MobileNetV1's depthwise and
+pointwise calls (224 px, batch 8 and 64; 13 of each, 9 distinct shapes of
+each, a shape's time counted once per call in the sums) under every plan
+their planners weigh.  `--only` runs the named probes alone.
 Prints one line per (shape, plan), the planner's choice marked `*`, and the
 card's name and power limit.  Needs a CUDA device.
 """
@@ -83,6 +86,21 @@ K4_SHAPES = [
     (28, 28, 192, 3, 2, 1), (14, 14, 576, 3, 2, 1),
 ]
 K1_K4_BATCHES = (8, 64)
+# MobileNetV1 at 224 px: its K4 calls (h, w, c, k, stride, padding) and its
+# K7 calls (M / batch, K, N, epilogue), each with its calls per forward
+MBV1_K4_CALLS = {
+    (112, 112, 32, 3, 1, 1): 1, (112, 112, 64, 3, 2, 1): 1, (56, 56, 128, 3, 1, 1): 1,
+    (56, 56, 128, 3, 2, 1): 1, (28, 28, 256, 3, 1, 1): 1, (28, 28, 256, 3, 2, 1): 1,
+    (14, 14, 512, 3, 1, 1): 5, (14, 14, 512, 3, 2, 1): 1, (7, 7, 1024, 3, 1, 1): 1,
+}
+MBV1_K7_CALLS = {
+    (12544, 32, 64, "requant8"): 1, (3136, 64, 128, "requant8"): 1,
+    (3136, 128, 128, "requant8"): 1, (784, 128, 256, "requant8"): 1,
+    (784, 256, 256, "requant8"): 1, (196, 256, 512, "requant8"): 1,
+    (196, 512, 512, "requant8"): 5, (49, 512, 1024, "requant8"): 1,
+    (49, 1024, 1024, "int32"): 1,
+}
+PROBES = ("k1k4", "k4parts", "k5", "k7", "mbv1")
 
 # the K5 form of a residual and of another block's call in each rung:
 # (carry dtype or None, output)
@@ -121,12 +139,14 @@ def k7_plans(m, k, n, sms):
                 yield gemm_v2_ops.GemmPlan(bn, n_pad, ksteps, mtiles, n_pad // bn, s, tiles * s)
 
 
-def probe(label, card, shapes, plans_of, run_of):
+def probe(label, card, shapes, plans_of, run_of, calls=None):
     """Time every plan of every shape at each of K1_K4_BATCHES: plans_of(b,
     shape) -> (the planner's plan, [plans]); run_of(b, shape) -> (describe,
     run(plan) -> output).  Each output is checked bitwise against the
     planner's plan's.  Logs one line per plan, one per call with the pick's
-    cost over the best plan, one per batch with the sum over the calls."""
+    cost over the best plan, one per batch with the sum over the calls
+    (`calls`: {shape: calls per forward}, 1 where missing)."""
+    calls = calls or {}
     for b in K1_K4_BATCHES:
         pick_sum = best_sum = 0.0
         for shape in shapes:
@@ -141,12 +161,52 @@ def probe(label, card, shapes, plans_of, run_of):
                 mark = "*" if plan == chosen else " "
                 print(f"{mark} {label} | {b} | {text} | {plan} | {times[plan]:.4f}", flush=True)
             best = min(times, key=times.get)
-            pick_sum += times[chosen]
-            best_sum += times[best]
+            pick_sum += calls.get(shape, 1) * times[chosen]
+            best_sum += calls.get(shape, 1) * times[best]
             print(f"  {label} pick | {b} | {text} | {times[chosen]:.4f} | best {times[best]:.4f} "
                   f"{best} | +{100 * (times[chosen] / times[best] - 1):.1f}%", flush=True)
         print(f"  {label} picks | batch {b}: {pick_sum:.4f} ms over the calls, best plans "
               f"{best_sum:.4f} ms: +{100 * (pick_sum / best_sum - 1):.1f}% ({card})", flush=True)
+
+
+def k4_probe_fns(ints, sms):
+    """(plans_of, run_of) of K4 for probe(): requant8 onto an unsigned grid,
+    pad -128, as the engine calls it between convs."""
+    def k4_run(b, shape):
+        h, w, c, k, st, pad = shape
+        x, wt = ints((b, h, w, c), -128, 128), ints((k, k, 1, c), -127, 128)
+        bias = ints((c,), -(1 << 14), 1 << 14, np.int32)
+        kw = dict(stride=st, padding=pad, pad_value=-128, epilogue="requant8", net=7,
+                  out_signed=False)
+        return (f"{b}x{h}x{w}x{c} {k}x{k}/s{st}",
+                lambda plan: dw_ops.dw_int8(x, wt, bias, plan=plan, **kw))
+
+    def k4_plans(b, shape):
+        return (dw_ops.plan_dw(b, *shape, sms), dw_ops.dw_candidates(b, *shape, sms))
+
+    return k4_plans, k4_run
+
+
+def probe_mbv1(ints, sms, card):
+    """K4 and K7 at MobileNetV1's calls under every plan their planners weigh."""
+    print(f"K4 plans at MobileNetV1's calls ({card}): batch | x k/stride | plan | ms", flush=True)
+    probe("K4 MBv1", card, list(MBV1_K4_CALLS), *k4_probe_fns(ints, sms), calls=MBV1_K4_CALLS)
+
+    def k7_run(b, shape):
+        mb, k, n, epi = shape
+        x, w = ints((mb * b, k), -128, 128), ints((k, n), -127, 128)
+        wp, bias = gemm_v2_ops.pack_gemm_weight(w), ints((n,), -(1 << 16), 1 << 16, np.int32)
+        kw = dict(epilogue=epi, net=9, out_signed=False) if epi == "requant8" else dict(relu=True)
+        return (f"{mb * b} x {k} x {n} {epi}",
+                lambda plan: gemm_v2_ops.int8_gemm_v2(x, wp, bias, plan=plan, **kw))
+
+    def k7_plans_of(b, shape):
+        m, k, n = shape[0] * b, shape[1], shape[2]
+        return gemm_v2_ops.plan_gemm(m, k, n, sms), list(k7_plans(m, k, n, sms))
+
+    print(f"K7 plans at MobileNetV1's calls ({card}): batch | M x K x N epilogue | plan | ms",
+          flush=True)
+    probe("K7 MBv1", card, list(MBV1_K7_CALLS), k7_plans_of, k7_run, calls=MBV1_K7_CALLS)
 
 
 def probe_k1_k4(rng, dev, sms, card):
@@ -166,22 +226,10 @@ def probe_k1_k4(rng, dev, sms, card):
         return (gemm_ops.plan_k1(m, k, n, sms, esize),
                 gemm_ops.k1_candidates(m, k, n, sms, esize))
 
-    def k4_run(b, shape):
-        h, w, c, k, st, pad = shape
-        x, wt = ints((b, h, w, c), -128, 128), ints((k, k, 1, c), -127, 128)
-        bias = ints((c,), -(1 << 14), 1 << 14, np.int32)
-        kw = dict(stride=st, padding=pad, pad_value=-128, epilogue="requant8", net=7,
-                  out_signed=False)
-        return (f"{b}x{h}x{w}x{c} {k}x{k}/s{st}",
-                lambda plan: dw_ops.dw_int8(x, wt, bias, plan=plan, **kw))
-
-    def k4_plans(b, shape):
-        return (dw_ops.plan_dw(b, *shape, sms), dw_ops.dw_candidates(b, *shape, sms))
-
     print(f"K1 plans ({card}): batch | M x K x N epilogue | plan | ms", flush=True)
     probe("K1", card, K1_SHAPES, k1_plans, k1_run)
     print(f"K4 plans ({card}): batch | x k/stride | plan | ms", flush=True)
-    probe("K4", card, K4_SHAPES, k4_plans, k4_run)
+    probe("K4", card, K4_SHAPES, *k4_probe_fns(ints, sms))
 
 
 # K4 with parts cut out: (name, [(text in csrc/dw_conv.cu, its replacement)])
@@ -248,7 +296,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=",".join(PROBES),
+                    help="comma-separated probes to run, of " + ", ".join(PROBES))
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(PROBES):
+        ap.error(f"--only takes {', '.join(PROBES)}")
     if not torch.cuda.is_available():
         print("probe_plans: no CUDA device", file=sys.stderr)
         return 1
@@ -261,10 +314,16 @@ def main(argv=None) -> int:
     def ints(shape, lo, hi, dtype=np.int8):
         return torch.from_numpy(rng.randint(lo, hi, shape).astype(dtype)).to(dev)
 
-    probe_k1_k4(rng, dev, sms, card)
-    probe_k4_parts(sms, card)
-    probe_k5(n, ints, sms, card)
-    probe_k7(n, ints, sms, card)
+    if "k1k4" in only:
+        probe_k1_k4(rng, dev, sms, card)
+    if "k4parts" in only:
+        probe_k4_parts(sms, card)
+    if "k5" in only:
+        probe_k5(n, ints, sms, card)
+    if "k7" in only:
+        probe_k7(n, ints, sms, card)
+    if "mbv1" in only:
+        probe_mbv1(ints, sms, card)
     print(card)
     return 0
 

@@ -96,6 +96,7 @@ def jax_taps(taps):
 
     saved = dict(
         _block_resnet_int=jax_int_engine._block_resnet_int,
+        _block_mbv1_int=jax_int_engine._block_mbv1_int,
         _block_mbv2_int=jax_int_engine._block_mbv2_int,
         _classifier_int=jax_int_engine._classifier_int,
     )
@@ -103,6 +104,7 @@ def jax_taps(taps):
     try:
         jax_int_engine._block_resnet_int = wrap("block", saved["_block_resnet_int"])
         jax_int_engine._block_mbv2_int = wrap("block", saved["_block_mbv2_int"])
+        jax_int_engine._block_mbv1_int = wrap("block", saved["_block_mbv1_int"])
         jax_int_engine._classifier_int = wrap("classifier", saved["_classifier_int"])
         jax_int_engine._Walker.relu_i32 = wrap("relu", relu)
         yield
@@ -179,7 +181,7 @@ def port_model(spec):
 def port_run(eng, x):
     """(logits, each block's output, the pool's input, the pool's output)
     of one forward of the port's engine."""
-    attr = "block_mbv2" if eng.model.name == "mobilenet_v2" else "block"
+    attr = {"mobilenet_v2": "block_mbv2", "mobilenet_v1": "block_mbv1"}.get(eng.model.name, "block")
     blocks, pool = [], []
     block, avgpool = getattr(eng, attr), eng.avgpool
 

@@ -303,6 +303,47 @@ def test_dw_int8_kernel_vs_plain(dev, n, h, w, c, k, stride, padding, pad_value,
         assert torch.equal(got.cpu(), dw_int8_plain(x, wt, b, **kw)), kw
 
 
+# MobileNetV1's depthwise calls at 224 px, batch 8, (h, w, c, stride): the 13
+# calls take 9 shapes (five 14x14 x 512 at stride 1)
+MBV1_DW_CALLS = [(112, 112, 32, 1), (112, 112, 64, 2), (56, 56, 128, 1), (56, 56, 128, 2),
+                 (28, 28, 256, 1), (28, 28, 256, 2), (14, 14, 512, 1), (14, 14, 512, 2),
+                 (7, 7, 1024, 1)]
+
+
+@pytest.mark.parametrize("h,w,c,stride", MBV1_DW_CALLS)
+def test_dw_int8_mobilenet_v1_calls_vs_plain(dev, h, w, c, stride):
+    """K4 at MobileNetV1's depthwise shapes under plan_dw's plan, both
+    epilogues, the unsigned and the signed pad."""
+    rng = np.random.RandomState(h + c + stride)
+    x, wt, b = _int8(rng, (8, h, w, c)), _int8(rng, (3, 3, 1, c), -127), _bias(rng, c, False)
+    for kw in (GEMM_EPILOGUES[0], GEMM_EPILOGUES[3]):
+        for pad_value in (-128, 0):
+            kw = dict(kw, stride=stride, padding=1, pad_value=pad_value)
+            got = dw_int8(x.to(dev), wt.to(dev), b.to(dev), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), dw_int8_plain(x, wt, b, **kw)), kw
+
+
+# MobileNetV1's pointwise GEMMs at 224 px, batch 8, (M, K, N): the 13 calls
+# take 9 shapes (five 1568 x 512 x 512)
+MBV1_PW_CALLS = [(100352, 32, 64), (25088, 64, 128), (25088, 128, 128), (6272, 128, 256),
+                 (6272, 256, 256), (1568, 256, 512), (1568, 512, 512), (392, 512, 1024),
+                 (392, 1024, 1024)]
+
+
+@pytest.mark.parametrize("M,K,N", MBV1_PW_CALLS)
+def test_int8_gemm_v2_mobilenet_v1_calls_vs_plain(dev, M, K, N):
+    """K7 at MobileNetV1's pointwise shapes on weights packed as the engine
+    packs them: requant8 (every call but the last) and int32 with ReLU."""
+    rng = np.random.RandomState(M + K + N)
+    x, w, b = _int8(rng, (M, K)), _int8(rng, (K, N), -127), _bias(rng, N, False)
+    wp = pack_gemm_weight(w.to(dev))
+    for kw in (GEMM_EPILOGUES[1], GEMM_EPILOGUES[3]):
+        got = int8_gemm_v2(x.to(dev), wp, b.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), int8_gemm_plain(x, w, b, **kw)), kw
+
+
 # (n, h, w, c, k, stride, padding): small maps on which K4 runs under every
 # tile its planner weighs, and under one persistent block
 DW_PLAN_SHAPES = [(1, 13, 11, 48, 3, 1, 1), (2, 9, 9, 32, 3, 2, 1), (1, 12, 12, 64, 5, 1, 2),
@@ -662,7 +703,7 @@ def test_launch_counters_count_kernel_launches(dev):
     assert int8_gemm.launches == before + 1
 
 
-@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50"])
+@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50", "mobilenet_v1"])
 def test_engine_kernels_bitwise_equal_plain(dev, path):
     """Each main path at 64 px through the kernels and through the plain
     versions, on the card: launches per forward as chip_smoke.py checks them
@@ -681,7 +722,7 @@ def test_engine_kernels_bitwise_equal_plain(dev, path):
 
 
 @pytest.mark.parametrize("rung", ["int8_boundary", "bf16_boundary"])
-@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50"])
+@pytest.mark.parametrize("path", ["resnet18", "mobilenet_v2", "resnet50", "mobilenet_v1"])
 def test_engine_rungs_bitwise_equal_plain(dev, path, rung):
     """Each main path's relaxed rungs at 64 px through the kernels and
     through the plain versions, on the card: the strict rung's launches per
@@ -703,3 +744,60 @@ def test_engine_rungs_bitwise_equal_plain(dev, path, rung):
     if path == "mobilenet_v2":
         assert ("bf16" in outs) == (rung == "bf16_boundary")
         assert ("int8" in carries) == (rung == "int8_boundary")
+
+
+@pytest.mark.parametrize("name", ["resnet18", "mobilenet_v1"])
+def test_qat_train_forward_on_the_card_vs_cpu(dev, name):
+    """Each layer of the QAT train-mode forward (32 px, batch 2) on the
+    card against the same layer on the CPU, on the CPU forward's input and
+    state (the forward amplifies any float32 difference end to end:
+    tests/test_torch_qat.py), with the global TF32 switches on, which the
+    layers must not follow: fraclens and EMA updates equal, BN statistics
+    within 1e-5 relative, outputs within 1e-5 of their largest value but in
+    at most 5% of the output channels (a folded weight across a rounding
+    boundary), and every switch as the caller left it."""
+    from f8net_tpu_torch.models import get_model
+    from f8net_tpu_torch.nn import quant_layers as ql
+    from f8net_tpu_torch.nn import runner as port_runner
+    from f8net_tpu_torch.utils import QuantConfig
+
+    cfg = QuantConfig(format_from_metric=True, metric="std", quant_bias=True,
+                      quant_avgpool=True, pool_fusing=True)
+    model = get_model(name, cfg, num_classes=10, image_size=32)
+    params, state = model.init(torch.Generator().manual_seed(0), device="cpu")
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32))
+    calls, conv, linear = [], port_runner.Runner.conv, port_runner.Runner.linear
+
+    def record(method):
+        def call(self, lname, act):
+            before = {k: dict(v) for k, v in self.state.items()}
+            out = method(self, lname, act)
+            calls.append((lname, ql.as_act(act).x, before, out.x))
+            return out
+        return call
+
+    port_runner.Runner.conv, port_runner.Runner.linear = record(conv), record(linear)
+    try:
+        _, cpu_state = model.apply(params, state, x, mode="train")
+    finally:
+        port_runner.Runner.conv, port_runner.Runner.linear = conv, linear
+    dp = {k: {kk: v.to(dev) for kk, v in d.items()} for k, d in params.items()}
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for lname, xin, before, want in calls:
+            fn = ql.linear_apply if lname == "classifier" else ql.conv_bn_apply
+            ds = {k: {kk: v.to(dev) for kk, v in d.items()} for k, d in before.items()}
+            y, upd = fn(model.graph, cfg, lname, dp, ds, ql.Act(xin.to(dev)), "train")
+            assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+            got = y.x.cpu()
+            far = ((got - want).abs() > 1e-5 * want.abs().max()).reshape(-1, got.shape[-1])
+            assert int(far.any(0).sum()) <= max(1, 0.05 * got.shape[-1]), lname
+            for k, v in upd[lname].items():
+                w = cpu_state[lname][k]
+                if k == "input_fl_ema":
+                    assert torch.equal(v.cpu(), w), lname
+                else:
+                    torch.testing.assert_close(v.cpu(), w, rtol=1e-5, atol=1e-6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
