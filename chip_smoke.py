@@ -43,15 +43,49 @@ from the seed, and the port's own QAT forward and bake:
            logits, with top-1 agreement logged; the train-mode forward's
            wall ms and the baked plan's clamped and zero shares logged, not
            gated (the weights are random and barely trained)
+  serve    ResNet-18 (the engine phase's synthetic bundle) behind
+           ServingEngine(IntEngine(...), buckets=SERVE_BUCKETS, ring of
+           SERVE_RING images, 224x224x3 uint8), strict and bf16 rungs (the
+           bf16 rung is the JAX package's serving configuration,
+           examples/end_to_end.py:81-92): no synchronising CUDA call in
+           IntEngine.__call__ at any bucket.  The traffic: one client
+           sending single images, then closed-loop client threads sending
+           requests of 1-4 images (a few as int32, which the ring does not
+           take: the copy path) and one of SERVE_OVERSIZED images.
+           Checked window, once through a server whose engine records every
+           device batch with its logits and launches (19 K2 + 1 K3 + 1 K1
+           each, counts reset before serving): every served row bitwise
+           equal to its recorded batch's row for the same image, the engine
+           again on each recorded batch bitwise equal, and in the strict
+           rung each request bitwise equal to the engine on its images
+           alone.  Pipeline: SERVE_PIPELINED full batches queued before the
+           server starts, each forward behind a spin kernel that outlasts
+           the host's enqueue of the next batch; when batch k is routed,
+           batch k+1 must be enqueued and its forward not yet finished on
+           the card (an event behind each forward): routing waits for its
+           own batch alone.  Measured windows, through a server on the
+           bare IntEngine: a warm-up window, the single-image client (its
+           latency), SERVE_ROUNDS rounds of the clients' traffic in one
+           window (images/s, client-side p50 and p99 latency, the server's
+           stats), then one round under torch.profiler (its device time per
+           computed row, bucket padding included; times the measured
+           window's rows over its wall: the device-busy share while
+           serving); every batch's launches counted
+  export   the bake phase's ResNet-18: export_torchscript at 224 px, loaded
+           back with torch.jit.load on the CPU, its logits on 2 images
+           bitwise equal to the card's strict engine's (CPU wall time
+           logged); its F8NB bundle written and read back equal to the plan
+           and int params
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
            against its plain version on every row and against K2
   timing   device time (torch.profiler) of each kernel call, of its plain
            version and of one PyTorch call computing the same function where
-           there is one (K1 and K7: torch._int_mm; K4: F.conv2d in float32,
-           channels_last, groups=C, without the epilogue) at the same shape
-           (K7 also beside K1, K6 beside K2); K1 per call with its form and
+           there is one (K1 and K7: torch._int_mm; K2, K4 and K6: F.conv2d in
+           float32, TF32 off, channels_last, without the epilogue; K3:
+           F.conv2d of its 7x7/s2 conv alone, without the pool) at the same
+           shape (K7 also beside K1, K6 beside K2); K1 per call with its form and
            plan (ops/gemm.py:plan_k1) beside the replaced design's recorded
            time, K2 per shape with
            its tile and split (ops/conv.py:plan_conv), K4 per call with its
@@ -68,6 +102,10 @@ from the seed, and the port's own QAT forward and bake:
 The engine hands K1, K2, K3, K5 and K7 the weights it packed at
 construction (PackedK1Weight, PackedConvWeight, pack_stem_weight); the
 plain versions compute from the same packed layouts.
+
+The serve and export phases' numbers are logged on lines before the
+kernel table, which adds each kernel's launches while serving
+(`serve_launches`).
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -86,16 +124,18 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from f8net_tpu_torch.engine import IntEngine, plain_forward, plain_params
+from f8net_tpu_torch.engine import IntEngine, ServingEngine, plain_forward, plain_params
 from f8net_tpu_torch.engine.int_engine import is_bottleneck
 from f8net_tpu_torch.export import (
-    load_deploy_bundle, model_from_topology, save_deploy_bundle,
+    export_torchscript, load_deploy_bundle, load_native_bundle, model_from_topology,
+    save_deploy_bundle, save_native_bundle,
 )
 from f8net_tpu_torch.models import get_model
 from f8net_tpu_torch.nn.pool import avgpool_shift_for
@@ -148,6 +188,21 @@ BAKE_TRAIN_STEPS, BAKE_CALIB_STEPS = 30, 4
 # stay below 2^24; past that a sum rounds at 2^-24 relative, and an 8-bit
 # operand downstream may move one step, which the requants scale back down
 BAKE_ATOL = 2.0**-20
+# the serve phase: ResNet-18 behind ServingEngine with the buckets and ring
+# the JAX package's deployment uses; SERVE_CLIENTS closed-loop clients (each
+# waits for its answer before it sends the next request) of SERVE_REQUESTS
+# requests of 1-4 images, every SERVE_COPY_EVERY-th as int32 (the same
+# pixel values in a dtype the ring does not take: the copy path), plus one
+# request of SERVE_OVERSIZED images (split across full batches); before
+# them one client sends SERVE_TRICKLE single images, one at a time
+SERVE_BUCKETS, SERVE_RING, SERVE_WAIT_MS = (8, 16, 64), 256, 2.0
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_COPY_EVERY = 16, 24, 16
+SERVE_OVERSIZED, SERVE_TRICKLE = 100, 16
+SERVE_TIMEOUT = 120.0
+# the measured window: each client sends its requests SERVE_ROUNDS times;
+# the pipeline check: SERVE_PIPELINED full batches (they fill the ring),
+# each behind a spin kernel of SERVE_SPIN_CYCLES (about 20 ms at 1980 MHz)
+SERVE_ROUNDS, SERVE_PIPELINED, SERVE_SPIN_CYCLES = 4, 4, 40_000_000
 
 CFG = QuantConfig(
     format_from_metric=True, metric="std", quant_bias=True, quant_avgpool=True,
@@ -925,7 +980,7 @@ def flat_phase(paths):
 
 
 def new_row(name):
-    has_library = name in ("int8_gemm", "int8_gemm_v2", "dw_int8")
+    has_library = name != "ir_block"
     return dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
                 library_ms=0.0 if has_library else None, by_path={})
 
@@ -963,19 +1018,21 @@ def k2_plan_of(cargs, kw, out):
 
 
 def log_k2_table(rows, card: str) -> None:
-    """Per-shape table of K2's calls: shape, plan, device ms beside the bound."""
+    """Per-shape table of K2's calls: shape, plan, device ms beside the bound
+    and F.conv2d's (float32) at the same shape."""
     log(f"K2 per shape, batch {BATCH}, {IMAGE_SIZE} px ({card}): path | M | K | N | kernel/stride "
-        f"| tile | split | blocks | calls | ms per call | bound ms | x bound")
+        f"| tile | split | blocks | calls | ms per call | bound ms | x bound | F.conv2d ms")
     shapes = {}
-    for path, cargs, kw, out, ms, bound in rows:
+    for path, cargs, kw, out, ms, bound, lib in rows:
         m, k, n, kh, st, plan = k2_plan_of(cargs, kw, out)
         key = (path, m, k, n, kh, st, plan)
-        tot = shapes.setdefault(key, [0, 0.0, bound])
+        tot = shapes.setdefault(key, [0, 0.0, bound, lib])
         tot[0] += 1
         tot[1] += ms
-    for (path, m, k, n, kh, st, plan), (calls, ms, bound) in shapes.items():
+    for (path, m, k, n, kh, st, plan), (calls, ms, bound, lib) in shapes.items():
         log(f"  K2 | {path} | {m} | {k} | {n} | {kh}x{kh}/s{st} | {conv_ops.BM}x{plan.bn} | {plan.splits} | "
-            f"{plan.blocks} | {calls} | {ms / calls:.4f} | {bound:.5f} | {ms / calls / bound:.1f}")
+            f"{plan.blocks} | {calls} | {ms / calls:.4f} | {bound:.5f} | {ms / calls / bound:.1f} | "
+            f"{lib:.4f}")
 
 
 def log_k5_table(rows, card: str) -> None:
@@ -1058,16 +1115,37 @@ def log_k1_table(rows, card: str) -> None:
             f"{bound:.5f} | {ms / bound:.1f}")
 
 
-def dw_library_ms(cargs, kw) -> float:
-    """Device ms of one F.conv2d computing K4's products on the same inputs:
-    float32 (exact: |acc| <= 81 * 128 * 127 < 2^24, TF32 off), channels_last,
-    groups=C, on x padded with pad_value beforehand; no bias or epilogue."""
-    x, w = cargs[0], cargs[1]
-    p = kw["padding"]
-    xf = F.pad(x.permute(0, 3, 1, 2).float(), (p, p, p, p), value=float(kw["pad_value"]))
+def conv_library_ms(x, w, stride: int, padding: int, pad_value: int, groups: int = 1) -> float:
+    """Device ms of one F.conv2d computing a conv kernel's products on the
+    same inputs: x (NHWC int8) padded with pad_value beforehand, HWIO
+    weights, float32 with TF32 off, channels_last; no bias or epilogue.
+    Exact while |acc| <= kh * kw * (C / groups) * 128 * 127 < 2^24 (K4's and
+    K3's 7x7 x 3); at K2's larger reductions float32 may round a sum: a
+    yardstick of time, not of the integers."""
+    p = padding
+    xf = F.pad(x.permute(0, 3, 1, 2).float(), (p, p, p, p), value=float(pad_value))
     xf = xf.contiguous(memory_format=torch.channels_last)
     wf = w.permute(3, 2, 0, 1).float().contiguous(memory_format=torch.channels_last)
-    return device_ms(lambda: F.conv2d(xf, wf, stride=kw["stride"], groups=x.shape[3]))[0]
+    return device_ms(lambda: F.conv2d(xf, wf, stride=stride, groups=groups))[0]
+
+
+# the conv kernels timed against F.conv2d, and what each one's log line adds
+# to "F.conv2d (float32, channels_last, no epilogue"
+CONV_LIBRARY = {"conv_int8": "", "dw_int8": ", groups=C",
+                "stem_pool": ", the 7x7/s2 conv without the pool"}
+
+
+def library_conv_ms(eng, name, cargs, kw) -> float:
+    """F.conv2d at a recorded K2, K4 or K3 call (conv_library_ms): K2 on its
+    weights as HWIO, K4 with groups = C, K3's 7x7/s2 conv alone (without the
+    pool) on the engine's HWIO head weights."""
+    x = cargs[0]
+    if name == "stem_pool":
+        spec = eng.graph["head"]
+        return conv_library_ms(x, eng.params["head"]["w"], spec.stride[0], spec.padding[0],
+                               kw["pad_value"])
+    groups = x.shape[3] if name == "dw_int8" else 1
+    return conv_library_ms(x, hwio(cargs[1]), kw["stride"], kw["padding"], kw["pad_value"], groups)
 
 
 def dw_floor_ms(cargs, out, clock_mhz: float) -> float:
@@ -1121,13 +1199,11 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
     # on other inputs); the K5 table every forward's, with each call's form.
     table = {n: new_row(n) for n in KERNELS}
     k1_rows, k2_rows, k4_rows, k5_rows, k7_rows = [], [], [], [], []
-    k1_at_k7, dw_lib = {}, {}
+    k1_at_k7, conv_lib = {}, {}
     for (path, rung), (eng, counts, checked) in forwards.items():
         key = path if rung is None else f"{path}/{RUNGS[rung]}"
         for name, cargs, kw, out, err in checked:
             ms, bound = time_into(table[name], key, counts[name], name, cargs, kw, out, err)
-            if name == "conv_int8" and rung is None:
-                k2_rows.append((path, cargs, kw, out, ms, bound))
             if name in ("int8_gemm", "int8_gemm_v2"):
                 (M, K), N = cargs[0].shape, out.shape[1]
                 lib_ms, lib_m = int_mm_ms(M, K, N, device)
@@ -1136,15 +1212,18 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
                 add_to(table[name], key, "library_ms", lib_ms)
             if name == "int8_gemm" and rung is None:
                 k1_rows.append((path, cargs, kw, out, ms, bound, lib_ms, lib_m))
-            if name == "dw_int8":
-                shape = (tuple(cargs[0].shape), tuple(cargs[1].shape), kw["stride"], kw["padding"])
-                if shape not in dw_lib:  # timed once per shape: the values do not matter
-                    dw_lib[shape] = dw_library_ms(cargs, kw)
-                log(f"{key} library dw_int8: F.conv2d (float32, channels_last, groups=C, no "
-                    f"epilogue) at the same call: {dw_lib[shape]:.4f} ms")
-                add_to(table[name], key, "library_ms", dw_lib[shape])
-                if rung is None:
-                    k4_rows.append((path, cargs, kw, out, ms, bound, dw_lib[shape]))
+            if name in CONV_LIBRARY:
+                shape = (name, tuple(cargs[0].shape), tuple(cargs[1].shape), kw.get("stride"),
+                         kw.get("padding"))
+                if shape not in conv_lib:  # timed once per shape: the values do not matter
+                    conv_lib[shape] = library_conv_ms(eng, name, cargs, kw)
+                log(f"{key} library {name}: F.conv2d (float32, channels_last, no epilogue"
+                    f"{CONV_LIBRARY[name]}) at the same call: {conv_lib[shape]:.4f} ms")
+                add_to(table[name], key, "library_ms", conv_lib[shape])
+                if name == "dw_int8" and rung is None:
+                    k4_rows.append((path, cargs, kw, out, ms, bound, conv_lib[shape]))
+                if name == "conv_int8" and rung is None:
+                    k2_rows.append((path, cargs, kw, out, ms, bound, conv_lib[shape]))
             if name == "int8_gemm_v2":
                 shape = (tuple(cargs[0].shape), N, tuple(sorted(kw.items())))
                 if shape not in k1_at_k7:  # timed once per shape and epilogue
@@ -1162,7 +1241,10 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
         path = label.split()[0]
         k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c)[0] for c in k6_calls)
         k2 = sum(device_ms(lambda: conv_ops.conv_int8(*a, **kw))[0] for a, kw in k2_calls)
-        log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms at the same call(s)")
+        lib = sum(library_conv_ms(None, "conv_int8", a, kw) for a, kw in k2_calls)
+        add_to(row, path, "library_ms", lib)
+        log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms, F.conv2d (float32, "
+            f"channels_last, no epilogue) {lib:.4f} ms at the same call(s)")
         add_to(row, path, "k2_ms", k2)
     ms, call_ms, plain_ms, nb, ops = time_call("int8_gemm", extra, extra_kw, extra_out, 10)
     tb, to = bound_s(nb, ops)
@@ -1204,7 +1286,7 @@ def bake_phase(seed: int, images, card: str):
     alone folds it into the last conv), so only without it do the QAT
     int_infer forward and the integer engine compute the same network.
     Returns (launches per forward, checked kernel calls) of the baked
-    engine's forward."""
+    engine's forward and (model, plan, int params, engine)."""
     dev = images.device
     cfg = CFG.replace(pool_fusing=False)
     model = get_model("resnet18", cfg, num_classes=1000, image_size=IMAGE_SIZE)
@@ -1247,7 +1329,346 @@ def bake_phase(seed: int, images, card: str):
             f"top-1 agreement {agree:.3f}")
         if not err <= tol:
             raise AssertionError(f"bake: {what} parts from the integer engine by {err} > {tol}")
-    return counts, checked
+    return counts, checked, (model, plan, int_params, eng)
+
+
+# -- serve and export -----------------------------------------------------------
+
+
+def serve_traffic(seed: int, image_size: int = IMAGE_SIZE):
+    """The serve phase's requests: (trickle requests, one list of requests
+    per client).  Every image is distinct random uint8 with its index in its
+    first pixel's three bytes (image_id), which finds its rows in a recorded
+    device batch; a request is a slice of the pool, int32 where the copy
+    path is meant."""
+    rng = np.random.RandomState(seed + 7)
+    sizes = rng.randint(1, 5, (SERVE_CLIENTS, SERVE_REQUESTS))
+    n = SERVE_TRICKLE + int(sizes.sum()) + SERVE_OVERSIZED
+    shape = (n, image_size, image_size, 3)
+    pool = np.frombuffer(rng.bytes(math.prod(shape)), np.uint8).reshape(shape).copy()
+    ids = np.arange(n)
+    pool[:, 0, 0] = np.stack([ids % 256, ids // 256 % 256, ids // 65536], 1)
+    trickle = [pool[i:i + 1] for i in range(SERVE_TRICKLE)]
+    k, clients = SERVE_TRICKLE, []
+    for c in range(SERVE_CLIENTS):
+        reqs = []
+        for j, size in enumerate(sizes[c]):
+            r = pool[k:k + size]
+            k += size
+            copy_path = (c * SERVE_REQUESTS + j) % SERVE_COPY_EVERY == SERVE_COPY_EVERY - 1
+            reqs.append(r.astype(np.int32) if copy_path else r)
+        clients.append(reqs)
+    clients[0].insert(SERVE_REQUESTS // 2, pool[k:k + SERVE_OVERSIZED])
+    return trickle, clients
+
+
+def image_id(x: np.ndarray) -> np.ndarray:
+    """The indices serve_traffic wrote into images x (N, H, W, 3)."""
+    p = x[:, 0, 0].astype(np.int64)
+    return p[:, 0] + 256 * p[:, 1] + 65536 * p[:, 2]
+
+
+class ServeRecorder:
+    """An engine for ServingEngine that keeps each device batch it is handed,
+    its logits and the kernel launches its forward made (the dispatcher
+    thread is the only one that launches while the server runs)."""
+
+    def __init__(self, engine: IntEngine):
+        self.engine, self.device, self.calls = engine, engine.device, []
+
+    def __call__(self, x):
+        before = launches()
+        y = self.engine(x)
+        after = launches()
+        self.calls.append((x.clone(), y.clone(), {k: after[k] - before[k] for k in after}))
+        return y
+
+
+def run_clients(srv: ServingEngine, clients):
+    """Each client in a thread of its own sends its requests one after the
+    other, waiting for each answer.  Returns (wall s, [(request, logits,
+    latency s)])."""
+    out = [[] for _ in clients]
+    errors = []
+
+    def client(c):
+        try:
+            for r in clients[c]:
+                t = time.perf_counter()
+                y = srv.infer(r, timeout=SERVE_TIMEOUT)
+                out[c].append((r, y, time.perf_counter() - t))
+        except Exception as e:  # re-raised by the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(len(clients))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or any(len(o) != len(c) for o, c in zip(out, clients)):
+        raise AssertionError("serve: a client did not get all its answers")
+    return wall, [r for o in out for r in o]
+
+
+def latency_ms(results):
+    """(p50, p99) of the results' client-side latencies, ms."""
+    lat = np.array([r[2] for r in results]) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def check_served(label: str, eng: IntEngine, rec: ServeRecorder, served, strict: bool):
+    """Every served row bitwise equal to the row of its image in a recorded
+    device batch; the engine again on each recorded batch bitwise equal to
+    what it gave while serving; in the strict rung each request bitwise
+    equal to the engine on its images alone."""
+    where, rows = {}, []
+    for ci, (x, y, _) in enumerate(rec.calls):
+        x8 = x.cpu().to(torch.uint8).numpy()  # an int32 copy batch holds 0..255
+        for r, i in enumerate(image_id(x8)):
+            where.setdefault(int(i), []).append((ci, r))
+        rows.append((x8, y.cpu().numpy()))
+        if not torch.equal(eng(x), y):
+            raise AssertionError(f"{label} serve: the engine on recorded batch {ci} differs")
+    direct = {}
+    for req, logits, _ in served:
+        req8 = req.astype(np.uint8)
+        for img, i, row in zip(req8, image_id(req8), logits):
+            if not any(np.array_equal(rows[ci][0][r], img) and np.array_equal(rows[ci][1][r], row)
+                       for ci, r in where.get(int(i), [])):
+                raise AssertionError(f"{label} serve: image {i}'s row is not its device batch's")
+        if strict:
+            if id(req) not in direct:
+                direct[id(req)] = eng(torch.from_numpy(req).to(eng.device)).cpu().numpy()
+            if not np.array_equal(direct[id(req)], logits):
+                raise AssertionError(f"{label} serve: a request of {len(req)} images differs "
+                                     f"from the engine on its images alone")
+    return len(direct)
+
+
+class ForwardEvents:
+    """An engine for ServingEngine that queues a spin kernel of
+    SERVE_SPIN_CYCLES ahead of each forward on the card (so every batch
+    outlasts the host's enqueue of the next, in either rung) and records an
+    event behind it."""
+
+    def __init__(self, engine: IntEngine):
+        self.engine, self.device, self.done = engine, engine.device, []
+
+    def __call__(self, x):
+        if x.is_cuda:
+            torch.cuda._sleep(SERVE_SPIN_CYCLES)
+        y = self.engine(x)
+        if y.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self.done.append(ev)
+        return y
+
+
+def check_pipeline(label: str, eng: IntEngine, server, clients) -> None:
+    """Batch k routed while batch k+1 still runs on the card (module
+    docstring): SERVE_PIPELINED requests of one full batch each, from the
+    clients' uint8 images, all queued before the server starts, so the
+    dispatcher finds the next one at once.  Every request's logits bitwise
+    equal to the engine's on its images."""
+    b = max(SERVE_BUCKETS)
+    pool = np.concatenate([r for c in clients for r in c if r.dtype == np.uint8])
+    reqs = [pool[k * b:(k + 1) * b] for k in range(SERVE_PIPELINED)]
+    if SERVE_PIPELINED * b > SERVE_RING or len(reqs[-1]) != b:
+        raise ValueError("the pipeline check's requests must be full batches that fit the ring")
+    probe = ForwardEvents(eng)
+    srv = server(probe, name=f"pipeline-{label}")
+    running = {}
+
+    def routed(k):
+        def note(_):  # in the dispatcher thread, as batch k's rows are routed
+            nxt = probe.done[k + 1] if len(probe.done) > k + 1 else None
+            running[k] = None if nxt is None else not nxt.query()
+        return note
+
+    futs = [srv.submit(r) for r in reqs]
+    for k, f in enumerate(futs):
+        f.add_done_callback(routed(k))
+    try:
+        srv.start()
+        got = [f.result(SERVE_TIMEOUT) for f in futs]
+    finally:
+        srv.stop()
+    if (srv.stats["batches"], srv.stats["ring_batches"]) != (SERVE_PIPELINED, SERVE_PIPELINED):
+        raise AssertionError(f"{label} serve: pipeline: not one ring batch per request: {srv.stats}")
+    for k, (r, y) in enumerate(zip(reqs, got)):
+        if not np.array_equal(eng(torch.from_numpy(r).to(eng.device)).cpu().numpy(), y):
+            raise AssertionError(f"{label} serve: pipeline: request {k} differs from the engine")
+    if eng.device.type != "cuda":
+        return
+    for k in range(SERVE_PIPELINED - 1):
+        if running.get(k) is None:
+            raise AssertionError(f"{label} serve: pipeline: batch {k + 1} was not enqueued when "
+                                 f"batch {k} was routed")
+        if not running[k]:
+            raise AssertionError(f"{label} serve: pipeline: batch {k + 1}'s forward had finished "
+                                 f"on the card when batch {k} was routed")
+    log(f"{label} serve: pipeline: each of batches 0-{SERVE_PIPELINED - 2} (of {b} images, each "
+        f"forward behind a {SERVE_SPIN_CYCLES}-cycle spin) routed while the next batch's forward "
+        f"was still running on the card; every request bitwise equal to the engine on its images")
+
+
+def serve_rung(label: str, eng: IntEngine, traffic, card: str):
+    """The serve phase of one rung (module docstring).  Returns the launches
+    made in the checked window."""
+    trickle, clients = traffic
+    dev = eng.device
+    side = trickle[0].shape[1]
+    x64 = np.concatenate(clients[0])[:max(SERVE_BUCKETS)].astype(np.uint8)
+    x64 = torch.from_numpy(x64).to(dev)
+    for b in SERVE_BUCKETS:  # warm-up, and no synchronising call in the forward
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng(x64[:b])
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng(x64)
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        log(f"{label} serve: IntEngine.__call__ made no synchronising CUDA call at batch "
+            f"{', '.join(map(str, SERVE_BUCKETS))}; at batch {max(SERVE_BUCKETS)} it returned after "
+            f"{1e3 * enqueue:.3f} ms, the card finished after {1e3 * (time.perf_counter() - t0):.3f} ms")
+    server = functools.partial(
+        ServingEngine, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS, ring_capacity=SERVE_RING,
+        image_shape=(side, side, 3), image_dtype=np.uint8,
+    )
+    want = expected_launches("resnet18")
+
+    def check_stopped(srv, what):
+        if srv._thread.is_alive():
+            raise AssertionError(f"{label} serve: {what}: the dispatcher did not stop")
+        hits = srv.stats["bucket_hits"]
+        if not (hits.get(min(SERVE_BUCKETS)) and hits.get(max(SERVE_BUCKETS))
+                and srv.stats["ring_batches"] and srv.stats["copy_batches"]):
+            raise AssertionError(f"{label} serve: {what}: a path of the server went unused: "
+                                 f"{srv.stats}")
+
+    # the checked window: every device batch recorded
+    rec = ServeRecorder(eng)
+    srv = server(rec, name=f"serve-{label}-checked")
+    reset_launches()
+    try:
+        srv.start()
+        _, low = run_clients(srv, [trickle])
+        _, res = run_clients(srv, clients)
+    finally:
+        srv.stop()
+    counts = launches()
+    check_stopped(srv, "checked window")
+    batches = len(rec.calls)
+    if srv.stats["batches"] != batches:
+        raise AssertionError(f"{label} serve: {srv.stats['batches']} batches routed, {batches} run")
+    if dev.type == "cuda":
+        for ci, (_, _, delta) in enumerate(rec.calls):
+            if delta != want:
+                raise AssertionError(f"{label} serve: batch {ci} launched {delta}, expected {want}")
+        if counts != {k: v * batches for k, v in want.items()}:
+            raise AssertionError(f"{label} serve: launches {counts} for {batches} batches")
+    served = low + res
+    n = check_served(label, eng, rec, served, strict=not eng.bf16_boundary)
+    del rec
+    log(f"{label} serve: checked window: {len(served)} requests, {batches} device batches, each "
+        f"launching {want}; every served row bitwise equal to its device batch's, the engine "
+        f"again on each batch bitwise equal" + (f", {n} requests bitwise equal to the engine on "
+                                                f"their images alone" if n else ""))
+    check_pipeline(label, eng, server, clients)
+
+    # the measured windows: the bare engine, nothing recorded
+    srv = server(eng, name=f"serve-{label}")
+    rounds = [reqs * SERVE_ROUNDS for reqs in clients]
+    profiled = []
+
+    def rows():  # rows the card computed so far, bucket padding included
+        return srv.stats["images"] + srv.stats["padded"]
+
+    def profiled_round():
+        r0 = rows()
+        profiled.append(run_clients(srv, clients) + (rows() - r0,))
+
+    reset_launches()
+    try:
+        srv.start()
+        run_clients(srv, clients)  # warm-up: pinned buffers, the allocator's first blocks
+        _, low = run_clients(srv, [trickle])
+        r0 = rows()
+        wall, res = run_clients(srv, rounds)
+        measured_rows = rows() - r0
+        if dev.type == "cuda":  # profile() runs its own warm-up round first
+            ka = profile(profiled_round)
+    finally:
+        srv.stop()
+    check_stopped(srv, "measured windows")
+    if dev.type == "cuda" and launches() != {k: v * srv.stats["batches"] for k, v in want.items()}:
+        raise AssertionError(f"{label} serve: launches {launches()} for {srv.stats['batches']} "
+                             f"batches of the bare engine")
+    images = sum(len(r[0]) for r in res)
+    p50, p99 = latency_ms(res)
+    log(f"{label} serve: measured window (bare IntEngine, after a warm-up window): "
+        f"{SERVE_CLIENTS} closed-loop clients x {SERVE_ROUNDS} rounds, {len(res)} requests, "
+        f"{images} images in {wall:.3f} s: {images / wall:.1f} images/s, latency p50 {p50:.3f} ms "
+        f"p99 {p99:.3f} ms max {1e3 * max(r[2] for r in res):.3f} ms; max_wait_ms {SERVE_WAIT_MS}, "
+        f"buckets {SERVE_BUCKETS} ({card})")
+    t50, t99 = latency_ms(low)
+    log(f"{label} serve: one client of single images (bare IntEngine): p50 {t50:.3f} ms p99 "
+        f"{t99:.3f} ms ({card})")
+    if dev.type == "cuda":
+        pwall, pres, prows = profiled[-1]
+        device_s = sum(e.self_device_time_total for e in ka) / 1e6
+        log(f"{label} serve: device busy share while serving {device_s / prows * measured_rows / wall:.3f} "
+            f"in the measured window ({measured_rows} rows computed; {1e3 * device_s / prows:.5f} "
+            f"device ms per row in one round under torch.profiler, which itself ran "
+            f"{sum(len(r[0]) for r in pres) / pwall:.1f} images/s at a busy share of "
+            f"{device_s / pwall:.3f}) ({card})")
+    log(f"{label} serve: stats of the measured server (every window) {srv.stats}")
+    return counts
+
+
+def export_phase(model, plan, int_params, eng: IntEngine, images, card: str):
+    """The export phase (module docstring) on the bake phase's ResNet-18."""
+    x = eng.condition_input(images[:2])
+    want = eng(x).cpu()
+    side = images.shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = export_torchscript(model, plan, int_params, f"{tmp}/resnet18_int.pt",
+                                  image_size=side)
+        t1 = time.perf_counter()
+        ts = torch.jit.load(path, map_location="cpu")
+        with torch.no_grad():
+            got = ts(x.cpu().permute(0, 3, 1, 2).to(torch.int32))
+        t2 = time.perf_counter()
+        if not torch.equal(got, want):
+            raise AssertionError(f"export: the TorchScript's logits differ from the card's strict "
+                                 f"engine's (max {float((got - want).abs().max())})")
+        log(f"export: TorchScript at {side} px bitwise equal to the card's strict engine on 2 "
+            f"images; trace and save {t1 - t0:.3f} s, load and run on the CPU {t2 - t1:.3f} s "
+            f"wall ({card}; {torch.get_num_threads()} CPU threads)")
+        bundle = load_native_bundle(save_native_bundle(f"{tmp}/resnet18.f8nb", model, plan,
+                                                       int_params))
+    for rec, p in zip(bundle["layers"], plan.layers, strict=True):
+        entry = {k: v.cpu().numpy() for k, v in int_params[p.name].items()}
+        if ((rec["input_fl"], rec["weight_fl"], rec["symmetric"])
+                != (p.input_fl, p.weight_fl, p.input_symmetric)
+                or not np.array_equal(rec["w"], entry["w"])
+                or not np.array_equal(rec["b"], entry.get("b"))):
+            raise AssertionError(f"export: F8NB layer {p.name} differs from the plan")
+    log(f"export: F8NB bundle read back, all {len(plan.layers)} layers' fraclens, weights and "
+        f"biases equal to the plan's")
 
 
 def main(argv=None) -> int:
@@ -1307,9 +1728,19 @@ def main(argv=None) -> int:
     extra_out, _ = compare("int8_gemm", extra, extra_kw)
     log(f"kernel int8_gemm {describe(extra, extra_kw)}: equal to its plain version")
 
-    bake_counts, bake_calls = bake_phase(args.seed, images, card)
+    bake_counts, bake_calls, baked = bake_phase(args.seed, images, card)
     log(f"resnet18 baked: all {len(bake_calls)} kernel calls equal to their plain versions; "
         f"launches {bake_counts}")
+
+    t0 = time.time()
+    traffic = serve_traffic(args.seed)
+    serve_counts = {name: 0 for name in KERNELS}
+    for rung, label in ((None, "resnet18 strict"), ("bf16_boundary", "resnet18 bf16")):
+        counts = serve_rung(label, forwards[("resnet18", rung)][0], traffic, card)
+        serve_counts = {k: serve_counts[k] + counts[k] for k in KERNELS}
+    t1 = time.time()
+    export_phase(*baked, images, card)
+    log(f"serve and export phases: {t1 - t0:.1f} s and {time.time() - t1:.1f} s wall ({card})")
 
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
@@ -1325,7 +1756,7 @@ def main(argv=None) -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
-            library_ms=row["library_ms"], **extra_keys,
+            library_ms=row["library_ms"], **extra_keys, serve_launches=serve_counts[name],
             by_path=row["by_path"],
         ))
     print(json.dumps({"kernels": kernels}))

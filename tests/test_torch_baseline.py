@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.engine.baseline import plain_forward as jax_plain_forward
 from f8net_tpu.engine.baseline import plain_params as jax_plain_params
 from f8net_tpu.models import get_model as jax_get_model

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 import _rung_reference as ref
 import chip_smoke
 from f8net_tpu_torch.engine import IntEngine

@@ -21,6 +21,8 @@ tests/_rung_reference.py says.
 import numpy as np
 import pytest
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 import _rung_reference as ref
 from f8net_tpu_torch.engine import IntEngine
 from f8net_tpu_torch.export import load_deploy_bundle, model_from_topology, params_from_numpy

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.ops.pallas_ir_block import fused_ir_block as pallas_fused_ir_block
 from f8net_tpu_torch.ops import fused_ir_block, pack_real, to_real_bf16
 from f8net_tpu_torch.ops.gemm_v2 import pack_gemm_weight

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.ops.pallas_conv import pallas_conv_int8
 from f8net_tpu.ops.pallas_stem import build_stem_inputs_v2, stem_pool_int8_v2
 from f8net_tpu_torch.models import get_model

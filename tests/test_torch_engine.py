@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.engine import IntEngine as JaxIntEngine
 from f8net_tpu.export.bundle import save_deploy_bundle as jax_save_bundle
 from f8net_tpu.models import get_model as jax_get_model

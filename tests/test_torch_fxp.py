@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.ops import fix_quant as jax_fix_quant
 from f8net_tpu.ops import shift_requant as jax_shift_requant
 from f8net_tpu_torch.ops.fxp import fix_quant, shift_requant, wrap_i32

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.models import get_model as jax_get_model
 from f8net_tpu.utils import QuantConfig as JaxQuantConfig
 from f8net_tpu_torch.engine import IntEngine

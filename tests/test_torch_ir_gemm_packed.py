@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.ops.pallas_gemm_v2 import int8_gemm_v2 as pallas_int8_gemm_v2
 from f8net_tpu.ops.pallas_ir_block import fused_ir_block as pallas_fused_ir_block
 from f8net_tpu_torch.models import get_model

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.ops.pallas_dw import pallas_depthwise_int8
 from f8net_tpu.ops.pallas_gemm import int8_gemm as pallas_int8_gemm
 from f8net_tpu.ops.pallas_ir_block import fused_ir_block as pallas_fused_ir_block

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 import chip_smoke
 from f8net_tpu.engine import IntEngine as JaxIntEngine
 from f8net_tpu.export.bundle import load_deploy_bundle as jax_load_bundle

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 from f8net_tpu.ops.pallas_conv_flat import conv_flat_int8 as pallas_conv_flat
 from f8net_tpu.ops.pallas_conv_flat import pack_flat as pallas_pack_flat
 from f8net_tpu.ops.pallas_conv_flat import unpack_flat as pallas_unpack_flat

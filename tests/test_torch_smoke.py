@@ -2,11 +2,14 @@
 path: the synthetic bundle round trip, the engine run twice (kernels'
 wrappers and plain versions, which are the same code on the CPU), the
 comparisons with the float network, the recorded kernel calls of one
-forward, and the non-degenerate activations the calibration promises."""
+forward, and the non-degenerate activations the calibration promises; the
+serve and export phases on ResNet-18 with fewer, smaller requests."""
 
 import numpy as np
 import pytest
 import torch
+
+from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 import chip_smoke
 from f8net_tpu_torch.engine import IntEngine
@@ -142,3 +145,33 @@ def test_smoke_rung_phases_on_cpu(path, capsys):
         assert len(gated) == RUNG_REQUANTS[path][rung], (rung, len(gated))
         assert f"{path} {rung} engine: top-1 agreement with the strict rung" in out
         assert f"{path} {rung} engine: top-1 agreement with the float network" in out
+
+
+def test_serve_and_export_phases_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's serve phase in both rungs (3 clients of 4 requests
+    of 32-px images, buckets (2, 4, 8), an int32 request in four, one of 13
+    images; one round in the measured window) and its export phase, on the
+    CPU: every check of the card's run but the launch counts, the pipeline's
+    overlap on the card and the profiler's busy share."""
+    for name, value in dict(SERVE_BUCKETS=(2, 4, 8), SERVE_RING=32, SERVE_CLIENTS=3,
+                            SERVE_REQUESTS=4, SERVE_COPY_EVERY=4, SERVE_OVERSIZED=13,
+                            SERVE_TRICKLE=2, SERVE_ROUNDS=1).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    images = torch.from_numpy(np.random.RandomState(0).rand(8, 32, 32, 3).astype(np.float32))
+    model, plan, params, _ = chip_smoke.load_synthetic_model(0, 32, 10, "cpu", images)
+    traffic = chip_smoke.serve_traffic(0, image_size=32)
+    trickle, clients = traffic
+    assert [len(c) for c in clients] == [5, 4, 4] and sum(r.dtype == np.int32 for c in clients
+                                                          for r in c) == 3
+    ids = np.concatenate([chip_smoke.image_id(r) for r in trickle + clients[0]])
+    assert len(set(ids.tolist())) == len(ids)
+    for rung in (None, "bf16_boundary"):
+        eng = IntEngine(model, plan, params, device="cpu", **({rung: True} if rung else {}))
+        counts = chip_smoke.serve_rung(f"resnet18 {rung}", eng, traffic, "cpu")
+        assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    eng = IntEngine(model, plan, params, device="cpu")
+    chip_smoke.export_phase(model, plan, params, eng, images, "cpu")
+    out = capsys.readouterr().out
+    assert out.count("requests bitwise equal to the engine on their images alone") == 1
+    assert "export: TorchScript at 32 px bitwise equal" in out
+    assert "export: F8NB bundle read back" in out
