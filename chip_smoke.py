@@ -9,7 +9,8 @@ in the engine's three boundary rungs (strict, `int8_boundary=True`,
 `bf16_boundary=True`), twelve forwards, through the entry points a user
 calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
-from the seed, and the port's own QAT forward and bake:
+from the seed; the port's own QAT forward and bake; and its training path
+(Trainer, sgd_update, checkpoints, the run.py CLI, the parity harness):
 
   build    compile every CUDA kernel from f8net_tpu_torch/csrc, one nvcc per
            source, all at once
@@ -76,6 +77,34 @@ from the seed, and the port's own QAT forward and bake:
            bitwise equal to the card's strict engine's (CPU wall time
            logged); its F8NB bundle written and read back equal to the plan
            and int params
+  train    (after timing) ResNet-18 from the repository's
+           fix_quant_train.yml at its full width (1000 classes, 224 px),
+           written to a temporary YAML with the synthetic dataset, a
+           temporary log directory and one epoch of TRAIN_SYNTHETIC images:
+           OVERFIT_STEPS Trainer steps on the CLI's val images (random
+           labels), every loss logged, the last below the first; one
+           sgd_update of ResNet-18's real params, gradients and momentum
+           on the card bitwise equal to the same call on CPU copies; a
+           batch-TRAIN_BATCH step timed (wall ms over TRAIN_TIMED_STEPS
+           steps, images/s, peak memory, device-busy share from
+           torch.profiler, its conv and GEMM FLOPs as autograd ran them
+           over their device ms) and the Loader alone (images/s per epoch,
+           start-up excluded); then run.main as a user calls it: one epoch from
+           the overfit weights (fp_pretrained_file), whose latest_checkpoint
+           and best_model must equal the tensors it held when it saved
+           them; a resumed run one epoch longer, which must print "Loaded
+           checkpoint ... at epoch 1" and load exactly what was saved; the
+           bn_calib_before_test phase; the int_op_only phase from
+           fix_quant_test_int_op_only.yml on best_model, launches counted
+           (19 K2 + 1 K3 + 1 K1 per val batch), whose engine's input and
+           logits on every val batch must equal, bitwise, those of
+           chip_smoke's own IntEngine on the same bake and val loader
+           (run.datasets, run.make_loader), and its printed top-1 error
+           that engine's, whose forward's every kernel call is held
+           against its plain version; and parity.evaluate_parity's
+           synthetic dry run on the card, integize's logits bitwise equal
+           to int_op_only's on every image; each CLI phase's
+           wall s logged
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
@@ -103,7 +132,7 @@ The engine hands K1, K2, K3, K5 and K7 the weights it packed at
 construction (PackedK1Weight, PackedConvWeight, pack_stem_weight); the
 plain versions compute from the same packed layouts.
 
-The serve and export phases' numbers are logged on lines before the
+The serve, export and train phases' numbers are logged on lines before the
 kernel table, which adds each kernel's launches while serving
 (`serve_launches`).
 
@@ -117,9 +146,12 @@ fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -130,6 +162,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 from f8net_tpu_torch.engine import IntEngine, ServingEngine, plain_forward, plain_params
 from f8net_tpu_torch.engine.int_engine import is_bottleneck
@@ -144,7 +177,17 @@ from f8net_tpu_torch.ops import _build, conv as conv_ops, dw as dw_ops, gemm as 
 from f8net_tpu_torch.ops import conv_flat as flat_ops, gemm_v2 as gemm_v2_ops
 from f8net_tpu_torch.ops import ir_block as ir_ops, stem as stem_ops
 from f8net_tpu_torch.quant import LayerPlan, QuantPlan, bake_plan, reset_bn_for_calib
-from f8net_tpu_torch.utils import QuantConfig
+from f8net_tpu_torch.utils import QuantConfig, float32_exact
+
+import f8net_tpu_torch.export as export_mod
+import f8net_tpu_torch.train as train_mod
+from f8net_tpu_torch import data, parity, run as cli
+from f8net_tpu_torch.train import (
+    SGDState, checkpoint as train_ckpt, load_checkpoint, loop as train_loop, save_checkpoint,
+    sgd_update, weight_decay_mask,
+)
+from f8net_tpu_torch.utils.flags import from_flags, load_yaml
+from f8net_tpu_torch.utils.profiling import H100_PEAK_OPS, model_flops
 
 IMAGE_SIZE = 224
 BATCH = 8
@@ -203,6 +246,29 @@ SERVE_TIMEOUT = 120.0
 # the pipeline check: SERVE_PIPELINED full batches (they fill the ring),
 # each behind a spin kernel of SERVE_SPIN_CYCLES (about 20 ms at 1980 MHz)
 SERVE_ROUNDS, SERVE_PIPELINED, SERVE_SPIN_CYCLES = 4, 4, 40_000_000
+
+# the train phase: ResNet-18 from the repository's config (train_yaml says
+# what changes), the CLI at batch TRAIN_BATCH, TRAIN_EPOCHS epochs of
+# TRAIN_SYNTHETIC synthetic images (its val set is a quarter of that) on
+# TRAIN_WORKERS loader threads; OVERFIT_STEPS steps at OVERFIT_LR on the val
+# set's images first, then the classifier's bias for one val label lifted by
+# BIAS_LIFT (the CLI writes best_model only below a val error of 1);
+# TRAIN_TIMED_STEPS timed steps; the Loader alone over LOADER_EPOCHS epochs
+# of LOADER_BATCHES batches; the parity dry run at PARITY_BATCH, two
+# batches.  TRAIN_OVERRIDES: config fields changed further (none on the
+# card; the CPU rehearsal shrinks the model)
+REPO = os.path.dirname(os.path.abspath(__file__))
+TRAIN_CONFIG = "configs/imagenet/resnet18/conventional/fix_quant_train.yml"
+INT_CONFIG = "configs/imagenet/resnet18/conventional/fix_quant_test_int_op_only.yml"
+TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SYNTHETIC, TRAIN_WORKERS = 64, 1, 64, 4
+OVERFIT_STEPS, OVERFIT_LR, TRAIN_TIMED_STEPS, PARITY_BATCH = 32, 0.005, 20, 16
+LOADER_EPOCHS, LOADER_BATCHES = 3, 16
+BIAS_LIFT = 100.0
+TRAIN_OVERRIDES: dict = {}
+# the lines of the CLI's fraclen report (logged as a count)
+REPORT_KEYS = ("layer name:", "alpha:", "master layer", "weight format:", "input format:",
+               "fix scaling:", "following layer fix scaling:", "input_fraclen:",
+               "weight_fraclen:")
 
 CFG = QuantConfig(
     format_from_metric=True, metric="std", quant_bias=True, quant_avgpool=True,
@@ -1671,6 +1737,419 @@ def export_phase(model, plan, int_params, eng: IntEngine, images, card: str):
         f"biases equal to the plan's")
 
 
+# -- train ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """module.name replaced by value within the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def train_yaml(tmp: str, name: str, source: str, **over) -> str:
+    """`source` (a repository config, its !include resolved) with the train
+    phase's changes: the synthetic dataset, a log directory under `tmp`, no
+    experiment subdirectory, TRAIN_EPOCHS epochs of TRAIN_SYNTHETIC images,
+    TRAIN_WORKERS loader threads; then TRAIN_OVERRIDES and `over`.  Returns
+    the written YAML's path."""
+    d = load_yaml(os.path.join(REPO, source))
+    d.update(dataset="synthetic", log_dir=os.path.join(tmp, "log"), experiment_subdir=False,
+             num_epochs=TRAIN_EPOCHS, synthetic_size=TRAIN_SYNTHETIC,
+             data_loader_workers=TRAIN_WORKERS)
+    d.update(TRAIN_OVERRIDES, **over)
+    path = os.path.join(tmp, f"{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+def run_cli(label: str, argv, device):
+    """run.main(argv) with its standard output captured; logs its lines but
+    the fraclen report's (counted).  Returns (result, printed lines, wall s)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = cli.main(argv, device=device)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    report = [ln for ln in lines if ln.startswith(REPORT_KEYS)]
+    for ln in lines:
+        if not ln.startswith(REPORT_KEYS):
+            log(f"train: {label} | {ln}")
+    log(f"train: {label} | ... fraclen report: {len(report)} lines, "
+        f"{sum(ln.startswith('layer name:') for ln in report)} layers")
+    return result, lines, wall
+
+
+def val_loader(cfg, tcfg, extras):
+    """The CLI's val loader for these flags (run.datasets, run.make_loader)."""
+    return cli.make_loader(cli.datasets(tcfg, extras)[1], False, cfg, tcfg, extras)
+
+
+def recording_engine(calls: list):
+    """An IntEngine.__call__ that appends (int_only, input, logits), both
+    copied to the host, to `calls` and returns the logits."""
+    call = IntEngine.__call__
+
+    def wrapper(self, x):
+        y = call(self, x)
+        calls.append((self.int_only, x.detach().cpu().clone(), y.detach().cpu().clone()))
+        return y
+    return wrapper
+
+
+def same_trees(what: str, got, want) -> None:
+    """Two {layer: {name: tensor or array}} trees bitwise equal."""
+    if list(got) != list(want):
+        raise AssertionError(f"train: {what}: layers differ")
+    for lname, sub in want.items():
+        if set(got[lname]) != set(sub):
+            raise AssertionError(f"train: {what}: {lname}'s entries differ")
+        for k, v in sub.items():
+            a = got[lname][k]
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            if a.dtype != v.dtype or not np.array_equal(a, v):
+                raise AssertionError(f"train: {what}: {lname}/{k} differs")
+
+
+def overfit_step(trainer, params, state, opt, images, labels):
+    """Step 1: OVERFIT_STEPS train steps on one fixed batch (constant lr, no
+    weight decay); every loss logged; the last must lie below the first."""
+    losses = []
+    for i in range(OVERFIT_STEPS):
+        params, state, opt, res = trainer.run_epoch(params, state, opt, [(images, labels)], i,
+                                                    1, "train")
+        losses.append(res["loss"])
+    log(f"train: overfit {len(labels)} images with random labels, {OVERFIT_STEPS} steps at lr "
+        f"{trainer.tcfg.lr}, losses " + " ".join(f"{v:.4f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the overfit loss did not fall ({losses[0]} -> {losses[-1]})")
+    return params, state, opt
+
+
+def update_rule_step(model, trainer, params, state, opt, images, labels) -> None:
+    """Step 2: one sgd_update of the model's real params, gradients (one
+    backward on the card) and momentum, on the card and on CPU copies:
+    bitwise equal."""
+    dev = trainer.device
+    x = train_loop.condition_input(images, trainer.cfg)
+    for sub in params.values():
+        for p in sub.values():
+            p.requires_grad_(True)
+    with float32_exact():
+        logits, _ = model.forward(params, state, x, "train", trainer.cfg)
+        train_loop.cross_entropy_loss(logits, labels).backward()
+    grads = {l: {k: p.grad.detach().clone() for k, p in sub.items() if p.grad is not None}
+             for l, sub in params.items()}
+    new = {l: {k: p.detach().clone() for k, p in sub.items()} for l, sub in params.items()}
+    for sub in params.values():
+        for p in sub.values():
+            p.grad = None
+            p.requires_grad_(False)
+    mom = {l: {k: b.clone() for k, b in sub.items()} for l, sub in opt.momentum.items()}
+    def cpu(tree):  # copies, also of CPU tensors (the CPU rehearsal)
+        return {l: {k: v.to("cpu", copy=True) for k, v in sub.items()} for l, sub in tree.items()}
+
+    cpu_p, cpu_g, cpu_m = cpu(new), cpu(grads), cpu(mom)
+    mask = weight_decay_mask(model.graph, new, "all", 4e-5)
+    sgd_update(new, grads, SGDState(mom), 0.05, mask, 0.9, True)
+    sgd_update(cpu_p, cpu_g, SGDState(cpu_m), 0.05, mask, 0.9, True)
+    same_trees("sgd_update params, card against CPU", new, cpu_p)
+    same_trees("sgd_update momentum, card against CPU", mom, cpu_m)
+    n = sum(t.numel() for sub in new.values() for t in sub.values())
+    moved = sum(int((a != params[l][k]).sum()) for l, sub in new.items() for k, a in sub.items())
+    log(f"train: sgd_update (nesterov, wd 4e-5, lr 0.05) of {model.name}'s {n} params on {dev} "
+        f"bitwise equal to the CPU's, params and momentum; {moved} params moved")
+
+
+def time_train_step(model, trainer, params, state, opt, card: str) -> float:
+    """Wall ms per train step at batch TRAIN_BATCH (CUDA-synchronised host
+    clock, TRAIN_TIMED_STEPS steps), images/s and peak device memory; one
+    step's convolution and GEMM FLOPs as autograd ran them, forward and
+    backward (torch.utils.flop_counter), beside model_flops' forward (one
+    conv per layer) and over the step's conv and GEMM device ms; the
+    device-busy share: one profiled step's kernel ms over the median step's
+    wall ms.  Returns the median step's images/s."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    side = trainer.tcfg.image_size
+    g = torch.Generator().manual_seed(3)
+    images = torch.rand((TRAIN_BATCH, side, side, 3), generator=g).to(trainer.device)
+    labels = torch.randint(0, model.num_classes, (TRAIN_BATCH,), generator=g).to(trainer.device)
+    def step():
+        trainer.train_step(params, state, opt, images, labels, 1e-4)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(walls)
+    q1, _, q3 = statistics.quantiles(walls, n=4)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step()
+    flops = counter.get_total_flops()
+    by_op = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]  # the card's work
+    busy = sum(e.self_device_time_total for e in ka) / 1e3
+    top = sorted(ka, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"train: step at batch {TRAIN_BATCH}, {side} px: {ms:.2f} ms wall (median of "
+        f"{TRAIN_TIMED_STEPS}; quartiles {q1:.2f} / {q3:.2f}, min {min(walls):.2f}, max "
+        f"{max(walls):.2f}: " + " ".join(f"{w:.2f}" for w in walls) + f"), "
+        f"{TRAIN_BATCH / ms * 1e3:.1f} images/s; peak memory {peak:.3f} GiB; profiled step: "
+        f"{busy:.2f} device ms, device-busy share {busy / ms:.3f} of the median step's wall "
+        f"({busy / wall:.3f} of the profiled step's own {wall:.2f} ms, which the profiler "
+        f"slows); {sum(e.count for e in ka)} kernels and copies ({card})")
+    for e in top:
+        log(f"  train step device time: {e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"x{e.count}")
+    # kernel names by kind, the first match wins
+    kinds = (("layout conversions", ("nhwctonchw", "nchwtonhwc")),
+             ("convolutions and GEMMs (cuDNN, cuBLAS)", ("xmma", "cudnn", "gemm", "cutlass")),
+             ("reductions", ("reduce",)), ("elementwise and other", ("",)))
+    by_group = {name: [0.0, 0] for name, _ in kinds}
+    for e in ka:
+        name = next(n for n, keys in kinds if any(k in e.key.lower() for k in keys))
+        by_group[name][0] += e.self_device_time_total / 1e3
+        by_group[name][1] += e.count
+    log("train: step device ms by kind: " + "; ".join(
+        f"{name} {kms:.2f} ms in {n} kernels" for name, (kms, n) in by_group.items()))
+    conv_ms = by_group["convolutions and GEMMs (cuDNN, cuBLAS)"][0]
+    rate = flops / (conv_ms * 1e-3)
+    log(f"train: the step's convolutions and GEMMs, forward and backward, as autograd ran them: "
+        f"{flops / 1e12:.4f} TFLOP ({by_op}); model_flops' forward "
+        f"{model_flops(model, side, TRAIN_BATCH) / 1e12:.4f} TFLOP; over their {conv_ms:.2f} "
+        f"device ms {rate / 1e12:.2f} TFLOP/s, "
+        f"{rate / H100_PEAK_OPS['float32']:.3f} of the H100's 67 TFLOP/s float32 dense peak "
+        f"({card})")
+    return TRAIN_BATCH / ms * 1e3
+
+
+def time_loader(cfg, tcfg, step_rate: float) -> None:
+    """The train Loader's images/s at the config's size, alone (no step):
+    LOADER_EPOCHS epochs of LOADER_BATCHES batches, each timed from the
+    arrival of its first round of batches (one per thread: thread start-up
+    and the first decodes excluded) to its last; beside the train step's
+    images/s."""
+    ds = data.SyntheticDataset(TRAIN_BATCH * LOADER_BATCHES, tcfg.image_size, tcfg.num_classes)
+    ld = data.Loader(ds, batch_size=TRAIN_BATCH, train=True, normalize=cfg.normalize,
+                     image_size=tcfg.image_size, num_workers=TRAIN_WORKERS, seed=1)
+    rates = []
+    for epoch in range(LOADER_EPOCHS):
+        ld.set_epoch(epoch)
+        batches = iter(ld)
+        for _ in range(TRAIN_WORKERS):
+            next(batches)
+        t0 = time.perf_counter()
+        n = sum(len(labels) for _, labels in batches)
+        rates.append(n / (time.perf_counter() - t0))
+    log(f"train: Loader (PIL path, {TRAIN_WORKERS} threads, train transform) at "
+        f"{tcfg.image_size} px, {LOADER_EPOCHS} epochs of {LOADER_BATCHES} batches of "
+        f"{TRAIN_BATCH}, the first {TRAIN_WORKERS} of each untimed: "
+        + " ".join(f"{r:.1f}" for r in rates) + f" images/s, {min(rates) / step_rate:.2f}-"
+        f"{max(rates) / step_rate:.2f}x the step's median {step_rate:.1f} "
+        f"({os.cpu_count()} host cores)")
+
+
+def train_phase(seed: int, card: str, device="cuda"):
+    """The training path (module docstring): returns {kernel: launches} of
+    the CLI's int_op_only run and (engine, checked calls) of chip_smoke's
+    own engine on the trained checkpoint."""
+    dev = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, tcfg, extras = from_flags(load_yaml(train_yaml(tmp, "train", TRAIN_CONFIG)),
+                                       TRAIN_BATCH)
+        model = get_model("resnet18", cfg, num_classes=tcfg.num_classes,
+                          image_size=tcfg.image_size)
+        log(f"train: {TRAIN_CONFIG} at batch {TRAIN_BATCH}: {tcfg.num_classes} classes, "
+            f"{tcfg.image_size} px, lr {tcfg.lr} {tcfg.lr_scheduler}, momentum {tcfg.momentum} "
+            f"nesterov {tcfg.nesterov}, wd {tcfg.weight_decay} ({tcfg.weight_decay_scheme})")
+        # 1. overfit the CLI's val images (random labels); the CLI starts
+        # from these weights (fp_pretrained_file)
+        trainer = train_loop.Trainer(
+            model, cfg, tcfg.replace(lr=OVERFIT_LR, lr_scheduler="constant", weight_decay=0.0),
+            log=lambda *a: None, device=dev)
+        params, state, opt = trainer.init(torch.Generator().manual_seed(seed))
+        images, labels = next(iter(val_loader(cfg, tcfg, extras)))  # the whole val set
+        images, labels = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+        params, state, opt = overfit_step(trainer, params, state, opt, images, labels)
+        # a val error below 1 whatever the CLI's first step (at the config's
+        # lr, on images these weights never saw) does, so the CLI writes a
+        # best_model: the classifier's bias for the first val image's label
+        # lifted by BIAS_LIFT, so every image is given that class
+        with torch.no_grad():
+            params["classifier"]["bias"][labels[0]] += BIAS_LIFT
+        # 2. the update rule on the card against the CPU
+        update_rule_step(model, trainer, params, state, opt, images, labels)
+        init = save_checkpoint(os.path.join(tmp, "overfit"), {"params": params, "state": state})
+        if dev.type == "cuda":  # on other weights from here
+            time_loader(cfg, tcfg, time_train_step(model, trainer, params, state, opt, card))
+        del trainer, params, state, opt
+        train_cfg = train_yaml(tmp, "train", TRAIN_CONFIG, fp_pretrained_file=init)
+
+        # 3. the CLI trains an epoch from those weights; every save recorded
+        saved = {}
+
+        class Recording(train_ckpt.AsyncCheckpointer):
+            def save(self, path, trees, meta=None):
+                saved[path if path.endswith(".npz") else path + ".npz"] = {
+                    n: {l: {k: t.detach().clone() for k, t in sub.items()}
+                        for l, sub in tree.items()} for n, tree in trees.items()}
+                return super().save(path, trees, meta)
+
+        walls = {}
+        with patched(train_mod, "AsyncCheckpointer", Recording):
+            _, lines, walls["train"] = run_cli("train", [f"app:{train_cfg}", f"bs:{TRAIN_BATCH}"],
+                                               dev)
+        log_dir = os.path.join(tmp, "log")
+        for name in ("latest_checkpoint", "best_model"):
+            path = os.path.join(log_dir, f"{name}.npz")
+            if not os.path.exists(path):
+                raise AssertionError(f"train: the CLI wrote no {name}")
+            trees, _ = load_checkpoint(path)
+            for tree, want in saved[path].items():
+                same_trees(f"{name} file against the CLI's {tree} at its save", trees[tree], want)
+        if "Start training." not in lines or not any(ln.startswith("layer name: ") for ln in lines):
+            raise AssertionError("train: the CLI's train run printed no training or report")
+        log("train: the CLI, started from the overfit weights (fp_pretrained_file), wrote "
+            "latest_checkpoint and best_model, each bitwise equal to the tensors it held when it "
+            "saved them")
+
+        # 4. resume: one epoch more; what it loads equal to the file
+        loaded = []
+
+        def recording(fn):  # copies: the resumed run trains its tensors in place
+            def wrapper(*a, **kw):
+                out = fn(*a, **kw)
+                copy = lambda t: {l: {k: v.clone() for k, v in sub.items()} for l, sub in t.items()}
+                loaded.append(tuple(map(copy, out)) if isinstance(out, tuple) else copy(out))
+                return out
+            return wrapper
+
+        resume_cfg = train_yaml(tmp, "resume", TRAIN_CONFIG, num_epochs=TRAIN_EPOCHS + 1,
+                                fp_pretrained_file=init)
+        with patched(export_mod, "qat_from_numpy", recording(export_mod.qat_from_numpy)), \
+                patched(export_mod, "tensors_from_numpy", recording(export_mod.tensors_from_numpy)):
+            _, lines, walls["resume"] = run_cli("resume", [f"app:{resume_cfg}",
+                                                           f"bs:{TRAIN_BATCH}"], dev)
+        want = f"Loaded checkpoint {log_dir} at epoch {TRAIN_EPOCHS}."
+        if want not in lines:
+            raise AssertionError(f"train: the resumed run did not print {want!r}")
+        trees, _ = load_checkpoint(os.path.join(log_dir, "latest_checkpoint"))
+        # loaded: the fp_pretrained_file's (params, state), then the
+        # checkpoint's (params, state) and momentum; the file now holds
+        # epoch 2, so hold what was loaded against the epoch-1 save
+        first = saved[os.path.join(log_dir, "latest_checkpoint.npz")]
+        same_trees("resumed params", loaded[1][0], first["params"])
+        same_trees("resumed state", loaded[1][1], first["state"])
+        same_trees("resumed momentum", loaded[2], first["opt_momentum"])
+        log(f"train: resumed at epoch {TRAIN_EPOCHS}: the params, state and momentum it loaded "
+            f"bitwise equal to those saved")
+
+        # 5. bn-calibration on the checkpoint
+        calib_cfg = train_yaml(tmp, "calib", TRAIN_CONFIG, num_epochs=TRAIN_EPOCHS + 1,
+                               bn_calib_before_test=True, bn_calib_batch_num=1)
+        _, lines, walls["bn_calib"] = run_cli("bn_calib", [f"app:{calib_cfg}",
+                                                           f"bs:{TRAIN_BATCH}"], dev)
+        if "Start calibration." not in lines or not os.path.exists(
+                os.path.join(log_dir, "best_model_bn_calibrated.npz")):
+            raise AssertionError("train: the bn-calibration phase did not run")
+
+        # 6. the int_op_only phase on the trained checkpoint, through the
+        # kernels; chip_smoke's own engine on the same bake and val loader
+        best = os.path.join(log_dir, "best_model.npz")
+        int_cfg = train_yaml(tmp, "int", INT_CONFIG, pretrained_file=best,
+                             int_op_only_file_path=os.path.join(tmp, "export"))
+        cli_calls = []  # the CLI engine's (int_only, input, logits)
+        reset_launches()
+        with patched(IntEngine, "__call__", recording_engine(cli_calls)):
+            result, lines, walls["int_op_only"] = run_cli("int_op_only", [f"app:{int_cfg}",
+                                                                          f"bs:{TRAIN_BATCH}"], dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        cli_launches = launches()
+        printed = [ln for ln in lines if ln.startswith("test\t-1/")]
+        icfg, itcfg, iextras = from_flags(load_yaml(int_cfg), TRAIN_BATCH)
+        imodel = get_model("resnet18", icfg, num_classes=itcfg.num_classes,
+                           image_size=itcfg.image_size)
+        trees, _ = load_checkpoint(best)
+        plan, int_params = bake_plan(imodel, *export_mod.qat_from_numpy(
+            trees["params"], trees["state"], device=dev))
+        eng = IntEngine(imodel, plan, int_params, device=dev)
+        total, correct = 0, 0
+        vbatches = list(val_loader(icfg, itcfg, iextras))
+        if len(cli_calls) != len(vbatches) or not all(io for io, _, _ in cli_calls):
+            raise AssertionError(f"train: the CLI's int_op_only made {len(cli_calls)} integer "
+                                 f"engine calls over {len(vbatches)} val batches")
+        for (vimages, vlabels), (_, cli_x, cli_y) in zip(vbatches, cli_calls):
+            x = eng.condition_input(vimages)
+            y = eng(x)
+            if not torch.equal(x.cpu(), cli_x) or not torch.equal(y.cpu(), cli_y):
+                raise AssertionError("train: the CLI's int_op_only engine parts from chip_smoke's "
+                                     "on the same bake: input or logits differ")
+            correct += int((y.argmax(1).cpu() == torch.from_numpy(vlabels).long()).sum())
+            total += len(vlabels)
+        mine = f"test\t-1/{itcfg.num_epochs}: top1_error: {1 - correct / max(total, 1):.3f}"
+        if printed != [mine] or abs(result["top1_error"] - (1 - correct / total)) > 0:
+            raise AssertionError(f"train: the CLI's int_op_only printed {printed}; chip_smoke's "
+                                 f"engine on the same bake gives {mine!r}")
+        want = {name: LAUNCHES_PER_FORWARD["resnet18"].get(name, 0) * len(vbatches)
+                for name in KERNELS}
+        if dev.type == "cuda" and cli_launches != want:
+            raise AssertionError(f"train: the CLI's int_op_only launched {cli_launches}, "
+                                 f"expected {want}")
+        log(f"train: the CLI's int_op_only engine: its input and logits on each of its "
+            f"{len(cli_calls)} val batches bitwise equal to chip_smoke's engine on the same "
+            f"bake and val loader; its top-1 error {result['top1_error']:.3f} over {total} "
+            f"images (every image given the lifted bias's class); its launches {cli_launches}")
+        vimages = torch.from_numpy(np.concatenate([b[0] for b in vbatches])).to(dev)
+        _, counts, checked = drive("resnet18 trained", "resnet18", eng, vimages,
+                                   log_calls=False, gate=False)
+
+        # 7. the parity dry run on the card: integize's logits equal to
+        # int_op_only's
+        parity_calls = []  # (int_only, input, logits) of both engines, batch by batch
+        t0 = time.perf_counter()
+        with patched(IntEngine, "__call__", recording_engine(parity_calls)):
+            results, n, _ = parity.evaluate_parity(
+                "resnet18", synthetic=True, image_size=tcfg.image_size, batch_size=PARITY_BATCH,
+                limit_batches=2, num_classes=tcfg.num_classes, seed=seed, device=dev)
+        walls["parity"] = time.perf_counter() - t0
+        sims = [y for io, _, y in parity_calls if not io]
+        ints = [y for io, _, y in parity_calls if io]
+        if len(sims) != 2 or len(ints) != 2 or sum(len(y) for y in ints) != n:
+            raise AssertionError(f"train: parity made {len(sims)} integize and {len(ints)} "
+                                 f"int_op_only calls over {n} images")
+        differ = [int((a != b).sum()) for a, b in zip(sims, ints)]
+        if any(differ) or results["integize"] != results["int_op_only"]:
+            raise AssertionError(f"train: parity integize parts from int_op_only: {differ} "
+                                 f"logits differ per batch; {results}")
+        log(f"train: parity dry run over {n} images: integize's logits bitwise equal to "
+            f"int_op_only's on every image ({sum(y.numel() for y in ints)} logits); top-1 / "
+            f"top-5 of the random weights (a log): " + ", ".join(
+                f"{m} {r['top1']:.2f} / {r['top5']:.2f}" for m, r in results.items()))
+    log("train: wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f" ({card})")
+    return cli_launches, counts, checked
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1746,6 +2225,11 @@ def main(argv=None) -> int:
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
     table = timing_phase(forwards, paths, flat, (extra, extra_kw, extra_out), images, device, card)
     log(f"clocks after timing ({clocks}): {smi(clocks)}")
+    t0 = time.time()
+    train_launches, _, train_calls = train_phase(args.seed, card, device)
+    log(f"train phase: {time.time() - t0:.1f} s wall; the int_op_only CLI run launched "
+        f"{train_launches}; all {len(train_calls)} kernel calls of chip_smoke's engine on the "
+        f"trained checkpoint equal to their plain versions ({card})")
     kernels = []
     for name, k in KERNELS.items():
         row = table[name]

@@ -4,12 +4,13 @@ A bundle is an npz of int8 weights and int32 biases (`<layer>/w`,
 `<layer>/b`) plus a JSON topology with the static shift plan -- the same
 files the JAX package writes and reads, so a model baked there serves here.
 
-`params_from_numpy` is the one door through which weights enter the port:
-plain `(name, input_fl, weight_fl, input_symmetric)` records and numpy
+`params_from_numpy` is the one door through which integer weights enter the
+port: plain `(name, input_fl, weight_fl, input_symmetric)` records and numpy
 arrays, exactly what the JAX `bake_plan` produces after `np.asarray`, become
 the port's `QuantPlan` and tensors on the chosen device.  `qat_from_numpy`
 and `qat_to_numpy` carry the QAT forward's (params, state) across in both
-directions, as the reference's pytrees of float32 arrays.
+directions, as the reference's pytrees of float32 arrays, and
+`tensors_from_numpy` any other tree of them (a checkpoint's momentum).
 """
 
 from __future__ import annotations
@@ -58,35 +59,40 @@ def params_from_numpy(
     return plan, params
 
 
+def tensors_from_numpy(tree, device="cuda", what: str = "tree"):
+    """{layer: {name: float32 numpy array}} -> the same dicts of tensors on
+    `device`, values and shapes as given: a QAT params or state tree, or
+    the SGD momentum tree that a checkpoint carries beside them."""
+    dev = resolve_device(device)
+    out = {}
+    for lname, entry in tree.items():
+        d = {}
+        for key, arr in entry.items():
+            arr = np.asarray(arr)
+            if arr.dtype != np.float32:
+                raise TypeError(f"{what} {lname}/{key}: expected float32, got {arr.dtype}")
+            d[key] = torch.tensor(arr).to(dev)
+        out[lname] = d
+    return out
+
+
 def qat_from_numpy(params_np, state_np, device="cuda"):
     """The reference's QAT pytrees as numpy -- {layer: {'w': HWIO conv or
     (in, out) linear, 'alpha', 'gamma', 'beta', 'bias'}} and {layer:
     {'bn_mean', 'bn_var', 'bn_count', 'input_fl_ema'}}, every leaf float32
     -- -> the port's (params, state) on `device`, values and shapes as
     given."""
-    dev = resolve_device(device)
-
-    def convert(tree, what):
-        out = {}
-        for lname, entry in tree.items():
-            d = {}
-            for key, arr in entry.items():
-                arr = np.asarray(arr)
-                if arr.dtype != np.float32:
-                    raise TypeError(f"{what} {lname}/{key}: expected float32, got {arr.dtype}")
-                d[key] = torch.tensor(arr).to(dev)
-            out[lname] = d
-        return out
-
-    return convert(params_np, "params"), convert(state_np, "state")
+    return (tensors_from_numpy(params_np, device, "params"),
+            tensors_from_numpy(state_np, device, "state"))
 
 
 def qat_to_numpy(params, state):
-    """qat_from_numpy's inverse: (params, state) -> numpy float32 pytrees."""
+    """qat_from_numpy's inverse: (params, state) -> numpy float32 pytrees,
+    each array a copy (the trainer updates its tensors in place)."""
 
     def convert(tree):
         return {
-            lname: {key: t.detach().cpu().numpy() for key, t in entry.items()}
+            lname: {key: t.detach().to("cpu", copy=True).numpy() for key, t in entry.items()}
             for lname, entry in tree.items()
         }
 

@@ -175,3 +175,28 @@ def test_serve_and_export_phases_on_cpu(monkeypatch, capsys):
     assert out.count("requests bitwise equal to the engine on their images alone") == 1
     assert "export: TorchScript at 32 px bitwise equal" in out
     assert "export: F8NB bundle read back" in out
+
+
+def test_train_phase_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's train phase on the CPU at 32 px, 16 classes, batch 8:
+    the overfit, the update rule (here the CPU against itself), the CLI's
+    train, resume, bn-calib and int_op_only runs with their checkpoint
+    checks, chip_smoke's own engine on the trained checkpoint against the
+    CLI's engine (input and logits bitwise) and top-1 error, and the parity
+    dry run (integize's logits bitwise int_op_only's); not the card's
+    timings and launch counts."""
+    for name, value in dict(TRAIN_BATCH=8, TRAIN_SYNTHETIC=32, TRAIN_WORKERS=2,
+                            OVERFIT_STEPS=12, PARITY_BATCH=8,
+                            TRAIN_OVERRIDES={"image_size": 32, "num_classes": 16}).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    _, counts, checked = chip_smoke.train_phase(0, "cpu", device="cpu")
+    assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    names = [c[0] for c in checked]
+    assert {n: names.count(n) for n in set(names)} == chip_smoke.LAUNCHES_PER_FORWARD["resnet18"]
+    out = capsys.readouterr().out
+    for want in ("train: overfit 8 images with random labels, 12 steps",
+                 "bitwise equal to the CPU's", "wrote latest_checkpoint and best_model",
+                 "Loaded checkpoint", "resumed at epoch 1", "train: bn_calib | Start calibration.",
+                 "equal to chip_smoke's engine on the same bake",
+                 "integize's logits bitwise equal to int_op_only's", "train: wall s per phase"):
+        assert want in out, want
