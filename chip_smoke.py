@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (sm_90a).
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --dp-cards 4     # the dp phase alone, over NCCL
 
 Drives the port's four main paths -- ResNet-18, MobileNetV2, ResNet-50 and
 MobileNetV1 integer inference at 224x224, full width, 1000 classes -- each
@@ -10,7 +11,8 @@ in the engine's three boundary rungs (strict, `int8_boundary=True`,
 calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
 from the seed; the port's own QAT forward and bake; and its training path
-(Trainer, sgd_update, checkpoints, the run.py CLI, the parity harness):
+(Trainer, sgd_update, checkpoints, the Loader on its native and PIL paths,
+the run.py CLI, the parity harness, data parallelism over two processes):
 
   build    compile every CUDA kernel from f8net_tpu_torch/csrc, one nvcc per
            source, all at once
@@ -88,8 +90,11 @@ from the seed; the port's own QAT forward and bake; and its training path
            batch-TRAIN_BATCH step timed (wall ms over TRAIN_TIMED_STEPS
            steps, images/s, peak memory, device-busy share from
            torch.profiler, its conv and GEMM FLOPs as autograd ran them
-           over their device ms) and the Loader alone (images/s per epoch,
-           start-up excluded); then run.main as a user calls it: one epoch from
+           over their device ms) and the Loader alone on a JPEG ImageFolder
+           tree of LOADER_IMAGE-px images, on its native path (which it
+           must take: the native library must build) and on its PIL path
+           (images/s per epoch, start-up excluded); then run.main as a user
+           calls it: one epoch from
            the overfit weights (fp_pretrained_file), whose latest_checkpoint
            and best_model must equal the tensors it held when it saved
            them; a resumed run one epoch longer, which must print "Loaded
@@ -105,6 +110,23 @@ from the seed; the port's own QAT forward and bake; and its training path
            synthetic dry run on the card, integize's logits bitwise equal
            to int_op_only's on every image; each CLI phase's
            wall s logged
+  dp       (after train) ResNet-18 from the same config at full width, a
+           global batch of DP_BATCH split over DP_WORLD spawned ranks that
+           share the card over gloo (parallel.init_dist): one
+           floating_wo_clip and one QAT train step on each rank's shard,
+           both ranks' params, state and momentum bitwise equal, each held
+           against the same step in one process on the global batch (run
+           twice: the card's run-to-run spread, logged) -- fraclen EMAs
+           equal, loss, BN state, updates and momentum within DP_LIMITS;
+           run.main on both ranks for a synthetic epoch, a resumed one and
+           int_op_only on the checkpoint: rank 0 alone writes and prints,
+           the resume loads the same tensors on both ranks, the params
+           saved, both ranks end each epoch with bitwise equal params, and
+           int_op_only's reduced result is alike on both, each rank having
+           launched K1-K3; run.main at world size 1 in an NCCL group joined
+           through init_dist; the phase's wall s.  With --dp-cards N the
+           script runs this phase alone (after the build), its N ranks each
+           on a card of its own over NCCL, the card init_dist picks
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
@@ -163,6 +185,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 import yaml
+from PIL import Image
 
 from f8net_tpu_torch.engine import IntEngine, ServingEngine, plain_forward, plain_params
 from f8net_tpu_torch.engine.int_engine import is_bottleneck
@@ -181,7 +204,8 @@ from f8net_tpu_torch.utils import QuantConfig, float32_exact
 
 import f8net_tpu_torch.export as export_mod
 import f8net_tpu_torch.train as train_mod
-from f8net_tpu_torch import data, parity, run as cli
+from f8net_tpu_torch import data, native as native_mod, parity, run as cli
+from f8net_tpu_torch.native import imageops as native_ops
 from f8net_tpu_torch.train import (
     SGDState, checkpoint as train_ckpt, load_checkpoint, loop as train_loop, save_checkpoint,
     sgd_update, weight_decay_mask,
@@ -262,9 +286,27 @@ TRAIN_CONFIG = "configs/imagenet/resnet18/conventional/fix_quant_train.yml"
 INT_CONFIG = "configs/imagenet/resnet18/conventional/fix_quant_test_int_op_only.yml"
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SYNTHETIC, TRAIN_WORKERS = 64, 1, 64, 4
 OVERFIT_STEPS, OVERFIT_LR, TRAIN_TIMED_STEPS, PARITY_BATCH = 32, 0.005, 20, 16
-LOADER_EPOCHS, LOADER_BATCHES = 3, 16
+LOADER_EPOCHS, LOADER_BATCHES, LOADER_DECODE_THREADS = 3, 16, 2
+LOADER_IMAGE = (500, 375)  # (width, height) of the Loader's JPEGs
 BIAS_LIFT = 100.0
 TRAIN_OVERRIDES: dict = {}
+# the dp phase: the train phase's config at a global batch of DP_BATCH over
+# DP_WORLD ranks that share the card over gloo, one step of each kind at
+# DP_LR.  DP_LIMITS: the gaps (step_gaps) allowed between the ranks' step and
+# its reference on the global batch -- for the float step one process in
+# float64, which the float32 steps approximate; for the chaotic QAT step one
+# process in float32.  Each is about three times the gap measured at 224 px
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6), where one process in
+# float32 sat as far from float64 (update_l2 0.0103 against the ranks'
+# 0.0102; per tensor, update and momentum 0.108 for both) and one process on
+# images one ulp up as far from itself (BN 0.0126, update_l2 0.241 against the
+# ranks' 0.0128, 0.239).  The float step's per-tensor limits hold every tensor,
+# the small ones too (BN scales and shifts, the classifier's bias), which
+# update_l2 over the whole tree would not see
+DP_WORLD, DP_BATCH, DP_LR, DP_TIMEOUT = 2, 64, 0.01, 600.0
+DP_LIMITS = {"floating_wo_clip": {"loss": 3e-6, "bn": 2e-5, "update_l2": 0.03, "update": 0.3,
+                                  "momentum": 0.3},
+             "qat": {"loss": 1e-3, "bn": 0.04, "update_l2": 0.75}}
 # the lines of the CLI's fraclen report (logged as a count)
 REPORT_KEYS = ("layer name:", "alpha:", "master layer", "weight format:", "input format:",
                "fix scaling:", "following layer fix scaling:", "input_fraclen:",
@@ -1942,30 +1984,90 @@ def time_train_step(model, trainer, params, state, opt, card: str) -> float:
     return TRAIN_BATCH / ms * 1e3
 
 
-def time_loader(cfg, tcfg, step_rate: float) -> None:
-    """The train Loader's images/s at the config's size, alone (no step):
-    LOADER_EPOCHS epochs of LOADER_BATCHES batches, each timed from the
-    arrival of its first round of batches (one per thread: thread start-up
-    and the first decodes excluded) to its last; beside the train step's
-    images/s."""
-    ds = data.SyntheticDataset(TRAIN_BATCH * LOADER_BATCHES, tcfg.image_size, tcfg.num_classes)
-    ld = data.Loader(ds, batch_size=TRAIN_BATCH, train=True, normalize=cfg.normalize,
-                     image_size=tcfg.image_size, num_workers=TRAIN_WORKERS, seed=1)
+def jpeg_tree(root: str, n: int, classes: int, seed: int) -> str:
+    """An ImageFolder tree of `n` JPEG files (quality 90) of LOADER_IMAGE
+    (width, height) px, ImageNet's typical size: smooth random images (a
+    16 x 12 colour field resized up) with noise, so they compress about as
+    photographs do.  Written on threads; returns `root`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    w, h = LOADER_IMAGE
+    rng = np.random.RandomState(seed)
+    noise = rng.randint(-12, 13, (h + 64, w + 64, 3)).astype(np.int16)
+    fields = rng.randint(0, 256, (n, 12, 16, 3)).astype(np.uint8)
+    shifts = rng.randint(0, 64, (n, 2))
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"c{c:03d}"), exist_ok=True)
+
+    def write(i):
+        base = np.asarray(Image.fromarray(fields[i]).resize((w, h), Image.BILINEAR), np.int16)
+        dy, dx = shifts[i]
+        img = np.clip(base + noise[dy:dy + h, dx:dx + w], 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(root, f"c{i % classes:03d}", f"{i:05d}.jpg"),
+                                  quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    return root
+
+
+def loader_rates(ld) -> list:
+    """images/s of LOADER_EPOCHS epochs of `ld`, each timed from the arrival
+    of its first round of batches (one per worker: thread start-up and the
+    first decodes excluded) to its last."""
     rates = []
     for epoch in range(LOADER_EPOCHS):
         ld.set_epoch(epoch)
         batches = iter(ld)
-        for _ in range(TRAIN_WORKERS):
+        for _ in range(ld.workers):
             next(batches)
         t0 = time.perf_counter()
         n = sum(len(labels) for _, labels in batches)
         rates.append(n / (time.perf_counter() - t0))
-    log(f"train: Loader (PIL path, {TRAIN_WORKERS} threads, train transform) at "
-        f"{tcfg.image_size} px, {LOADER_EPOCHS} epochs of {LOADER_BATCHES} batches of "
-        f"{TRAIN_BATCH}, the first {TRAIN_WORKERS} of each untimed: "
-        + " ".join(f"{r:.1f}" for r in rates) + f" images/s, {min(rates) / step_rate:.2f}-"
-        f"{max(rates) / step_rate:.2f}x the step's median {step_rate:.1f} "
-        f"({os.cpu_count()} host cores)")
+    return rates
+
+
+def time_loader(cfg, tcfg, step_rate: float, card: str) -> None:
+    """The train Loader alone (no step) on its native path and on its PIL
+    path, at the config's size, over one JPEG ImageFolder tree of
+    TRAIN_BATCH * LOADER_BATCHES images of LOADER_IMAGE px: LOADER_EPOCHS
+    epochs each (loader_rates), TRAIN_WORKERS workers with
+    LOADER_DECODE_THREADS decode threads each; beside the train step's
+    images/s.  The native library must build (a build failure raises) and
+    the native Loader must take it."""
+    lib = native_ops.load()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ds = data.ImageFolderDataset(jpeg_tree(tmp, TRAIN_BATCH * LOADER_BATCHES, 16, 1))
+        made = time.perf_counter() - t0
+        kw = dict(batch_size=TRAIN_BATCH, train=True, normalize=cfg.normalize,
+                  image_size=tcfg.image_size, num_workers=TRAIN_WORKERS, seed=1,
+                  decode_threads=LOADER_DECODE_THREADS)
+        nat = data.Loader(ds, **kw)
+        native_rates = loader_rates(nat)
+        if nat.path == "pil":
+            raise AssertionError("train: the Loader did not take its native path")
+        pil = data.Loader(ds, **kw)
+        with patched(native_mod, "imageops_available", lambda: False):
+            pil_rates = loader_rates(pil)
+        if pil.path != "pil":
+            raise AssertionError(f"train: the PIL Loader took its {pil.path} path")
+    decode = ("libjpeg on native threads" if nat.path == "native_jpeg"
+              else "PIL (the native library was built without libjpeg: this host has no "
+                   "jpeglib.h or libjpeg.so)")
+    for name, rates in ((f"native path ({nat.path}: decode by {decode}; crop, resize, flip in "
+                         f"C++, {lib._name.rsplit('/', 1)[-1]})", native_rates),
+                        ("PIL path", pil_rates)):
+        log(f"train: Loader {name}, train transform to {tcfg.image_size} px, {TRAIN_WORKERS} "
+            f"workers x {LOADER_DECODE_THREADS} decode threads, {LOADER_EPOCHS} epochs of "
+            f"{LOADER_BATCHES} batches of {TRAIN_BATCH}, the first {TRAIN_WORKERS} of each "
+            f"untimed: " + " ".join(f"{r:.1f}" for r in rates) + f" images/s, "
+            f"{min(rates) / step_rate:.2f}-{max(rates) / step_rate:.2f}x the step's median "
+            f"{step_rate:.1f}")
+    log(f"train: Loader native / PIL per epoch: "
+        + " ".join(f"{a / b:.2f}" for a, b in zip(native_rates, pil_rates))
+        + f"; {TRAIN_BATCH * LOADER_BATCHES} JPEGs of {LOADER_IMAGE[0]}x{LOADER_IMAGE[1]} px "
+        f"written in {made:.1f} s ({os.cpu_count()} host cores; {card})")
 
 
 def train_phase(seed: int, card: str, device="cuda"):
@@ -2000,7 +2102,7 @@ def train_phase(seed: int, card: str, device="cuda"):
         update_rule_step(model, trainer, params, state, opt, images, labels)
         init = save_checkpoint(os.path.join(tmp, "overfit"), {"params": params, "state": state})
         if dev.type == "cuda":  # on other weights from here
-            time_loader(cfg, tcfg, time_train_step(model, trainer, params, state, opt, card))
+            time_loader(cfg, tcfg, time_train_step(model, trainer, params, state, opt, card), card)
         del trainer, params, state, opt
         train_cfg = train_yaml(tmp, "train", TRAIN_CONFIG, fp_pretrained_file=init)
 
@@ -2150,9 +2252,307 @@ def train_phase(seed: int, card: str, device="cuda"):
     return cli_launches, counts, checked
 
 
+# -- dp -------------------------------------------------------------------------
+
+
+def dp_global_batch(seed: int, n: int, side: int, classes: int):
+    """The dp phase's global batch, drawn on the host from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((n, side, side, 3), generator=g),
+            torch.randint(0, classes, (n,), generator=g, dtype=torch.int32))
+
+
+def host_tree(tree):
+    return {l: {k: v.detach().to("cpu", copy=True) for k, v in sub.items()}
+            for l, sub in tree.items()}
+
+
+def tree_digest(tree) -> dict:
+    """{layer: {name: sha256 of the tensor's bytes}}: bitwise equality of
+    trees across processes without moving them."""
+    import hashlib
+
+    return {l: {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+                for k, v in sub.items()} for l, sub in tree.items()}
+
+
+def dp_steps(settings: dict, device, group=None, rank: int = 0, world: int = 1,
+             kinds=("floating_wo_clip", "qat"), dtype=torch.float32, nudge: bool = False) -> dict:
+    """One floating_wo_clip and one QAT train step of ResNet-18 from
+    `settings["yaml"]`'s config, each from the init of settings["seed"], on
+    this rank's contiguous shard of the global batch (all of it without a
+    group); {kind: (params, state, momentum, metrics)} on the host.  `dtype`:
+    the params', state's and images' type; `nudge`: every image element
+    one ulp up (the QAT step's sensitivity)."""
+    from f8net_tpu_torch.parallel import shard_batch
+
+    cfg, tcfg, _ = from_flags(load_yaml(settings["yaml"]), settings["batch"])
+    images, labels = dp_global_batch(settings["seed"] + 1, settings["batch"], tcfg.image_size,
+                                     tcfg.num_classes)
+    if nudge:
+        images = torch.nextafter(images, torch.tensor(2.0))
+    x = shard_batch(images, rank, world).to(device, dtype)
+    y = shard_batch(labels, rank, world).to(device)
+    cast = lambda tree: {l: {k: v.to(dtype) for k, v in sub.items()} for l, sub in tree.items()}
+    out = {}
+    for kind, kcfg in (("floating_wo_clip", cfg.replace(floating_wo_clip=True)), ("qat", cfg)):
+        if kind not in kinds:
+            continue
+        model = get_model("resnet18", kcfg, num_classes=tcfg.num_classes,
+                          image_size=tcfg.image_size)
+        params, state = map(cast, model.init(torch.Generator().manual_seed(settings["seed"]),
+                                             device=device))
+        step = train_loop.make_train_step(model, kcfg, tcfg, group)
+        params, state, opt, m = step(params, state, train_mod.sgd_init(params), x, y, DP_LR)
+        out[kind] = (host_tree(params), host_tree(state), host_tree(opt.momentum),
+                     {k: float(v) for k, v in m.items()})
+    return out
+
+
+def dp_rank(rank: int, world: int, port: int, settings: dict) -> None:
+    """One rank of the dp phase, in a process of its own (spawned): joins
+    the group over settings["backend"] (gloo: on card 0, which the ranks
+    share; NCCL: on the card init_dist picks), runs dp_steps on its shard,
+    then the CLI's train, resumed and int_op_only runs; writes what it saw
+    to settings["out"]/rank<r>.pt."""
+    from f8net_tpu_torch.parallel import data_group, init_dist
+
+    device = torch.device(settings["device"])
+    if device.type == "cuda" and settings["backend"] == "gloo":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(settings["threads"])
+    init_dist(f"tcp://127.0.0.1:{port}", rank, world, backend=settings["backend"])
+    try:
+        group = data_group()
+        card = torch.cuda.current_device() if device.type == "cuda" else None
+        res = {"steps": dp_steps(settings, device, group, rank, world), "card": card}
+        writes, loaded, trained = [], [], []
+        write, run_epoch, from_numpy = (train_ckpt._write, train_loop.Trainer.run_epoch,
+                                        export_mod.qat_from_numpy)
+
+        def recording_write(path, flat, meta):
+            writes.append(os.path.basename(path))
+            return write(path, flat, meta)
+
+        def recording_epoch(self, *a, **kw):
+            out = run_epoch(self, *a, **kw)
+            if (a[6] if len(a) > 6 else kw.get("phase", "train")) == "train":
+                trained.append(tree_digest(out[0]))
+            return out
+
+        def recording_load(*a, **kw):
+            out = from_numpy(*a, **kw)
+            loaded.append([tree_digest(t) for t in out])
+            return out
+
+        printed = []
+        with patched(train_ckpt, "_write", recording_write), \
+                patched(train_loop.Trainer, "run_epoch", recording_epoch), \
+                patched(export_mod, "qat_from_numpy", recording_load):
+            for name in ("train", "resume", "int"):
+                buf = io.StringIO()
+                reset_launches()
+                with contextlib.redirect_stdout(buf):
+                    result = cli.main([f"app:{settings[name]}", f"bs:{settings['batch']}"],
+                                      device=device)
+                printed.append(buf.getvalue())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        res.update(writes=writes, loaded=loaded, trained=trained, printed=printed,
+                   int_result=result, int_launches=launches())
+        torch.save(res, os.path.join(settings["out"], f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def step_gaps(got, want, p0) -> dict:
+    """How far step result `got` is from `want` (both (params, state,
+    momentum, metrics) from the same init p0): the loss's relative gap; per
+    tensor, the gap of the BN running statistics, of the update (p0 - p)
+    and of the momentum over the reference tensor's largest element, the
+    largest over tensors (`update_at`: the tensor of the largest update
+    gap); the fraclen EMAs that differ."""
+    def worst(a, b, keys=None):
+        m, at = 0.0, None
+        for l, sub in b.items():
+            for k, v in sub.items():
+                if keys is None or k in keys:
+                    scale = max(float(v.abs().max()), 1e-30)
+                    gap = float((a[l][k] - v).abs().max()) / scale
+                    m, at = (gap, f"{l}.{k}") if gap > m else (m, at)
+        return m, at
+
+    def l2(a, b):  # over all tensors at once
+        num = sum(float(((a[l][k].double() - v.double()) ** 2).sum()) for l, sub in b.items()
+                  for k, v in sub.items())
+        den = sum(float((v.double() ** 2).sum()) for sub in b.values() for v in sub.values())
+        return math.sqrt(num / max(den, 1e-300))
+
+    upd = lambda p: {l: {k: p0[l][k].to(v.dtype) - v for k, v in sub.items()}
+                     for l, sub in p.items()}
+    update, update_at = worst(upd(got[0]), upd(want[0]))
+    return dict(
+        loss=abs(got[3]["loss"] - want[3]["loss"]) / abs(want[3]["loss"]),
+        bn=worst(got[1], want[1], ("bn_mean", "bn_var"))[0],
+        update=update, update_at=update_at,
+        update_l2=l2(upd(got[0]), upd(want[0])),
+        momentum=worst(got[2], want[2])[0],
+        ema_differ=sum(not torch.equal(got[1][l]["input_fl_ema"].to(sub["input_fl_ema"].dtype),
+                                       sub["input_fl_ema"])
+                       for l, sub in want[1].items()),
+        top1=(got[3]["top1"], want[3]["top1"]), n=(got[3]["n"], want[3]["n"]))
+
+
+def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
+             backend: str = "gloo") -> None:
+    """The dp phase (module docstring): `world` ranks that share card 0
+    over gloo, or (backend "nccl") each on a card of its own."""
+    import multiprocessing
+    import socket
+
+    from f8net_tpu_torch.parallel import get_world_size, init_dist
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks read everything from these files (spawned, they see this
+        # module's defaults, not a caller's settings)
+        settings = dict(
+            seed=seed, batch=DP_BATCH, device=str(dev), out=tmp, threads=torch.get_num_threads(),
+            yaml=train_yaml(tmp, "dp", TRAIN_CONFIG), train=train_yaml(tmp, "dp_train",
+                                                                       TRAIN_CONFIG),
+            resume=train_yaml(tmp, "dp_resume", TRAIN_CONFIG, num_epochs=TRAIN_EPOCHS + 1),
+            int=train_yaml(tmp, "dp_int", INT_CONFIG,
+                           pretrained_file=os.path.join(tmp, "log", "latest_checkpoint.npz"),
+                           int_op_only_file_path=os.path.join(tmp, "export")),
+            backend=backend)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, world, port, settings))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        # meanwhile the same steps in this process: twice (the run-to-run
+        # spread of one process on this device), the float step in float64
+        # (what both float32 steps approximate), the QAT step on images one
+        # ulp up (how far its chaotic forward moves on its own)
+        t0 = time.perf_counter()
+        refs = [dp_steps(settings, dev) for _ in range(2)]
+        refs.append(dp_steps(settings, dev, kinds=("floating_wo_clip",), dtype=torch.float64))
+        refs.append(dp_steps(settings, dev, kinds=("qat",), nudge=True))
+        t_ref = time.perf_counter() - t0
+        for p in procs:
+            p.join(DP_TIMEOUT)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        if alive or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"dp: rank exit codes {[p.exitcode for p in procs]}")
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        cards = [r["card"] for r in ranks]
+        if dev.type == "cuda" and cards != ([0] * world if backend == "gloo" else
+                                            list(range(world))):
+            raise AssertionError(f"dp: the ranks ran on cards {cards}")
+        how = ("sharing the card over gloo" if backend == "gloo"
+               else f"on cards {cards} over {backend}")
+        cfg, tcfg, _ = from_flags(load_yaml(settings["yaml"]), DP_BATCH)
+        init = get_model("resnet18", cfg, num_classes=tcfg.num_classes,
+                         image_size=tcfg.image_size).init(torch.Generator().manual_seed(seed),
+                                                          device="cpu")[0]
+        for kind in ("floating_wo_clip", "qat"):
+            a = ranks[0]["steps"][kind]
+            for r, other in enumerate(ranks[1:], 1):
+                b = other["steps"][kind]
+                for j, what in enumerate(("params", "state", "momentum")):
+                    same_trees(f"dp {kind}: rank {r}'s {what} against rank 0's", b[j], a[j])
+                if a[3] != b[3]:
+                    raise AssertionError(f"dp {kind}: the ranks' metrics differ: {a[3]} {b[3]}")
+            text = lambda g: ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                       for k, v in g.items())
+            if kind == "floating_wo_clip":  # held against the float64 step
+                ref, against = refs[2][kind], "one process in float64"
+                other = f"one process in float32 against it: {text(step_gaps(refs[0][kind], ref, init))}"
+            else:  # the chaotic QAT step: against one process in float32
+                ref, against = refs[0][kind], "one process"
+                other = (f"one process on images one ulp up against it: "
+                         f"{text(step_gaps(refs[3][kind], ref, init))}")
+            gaps = step_gaps(a, ref, init)
+            log(f"dp: {kind} step, {tcfg.image_size} px, global batch {DP_BATCH} over "
+                f"{world} ranks {how}: every rank's params, state and "
+                f"momentum bitwise equal; against {against} on the global batch: {text(gaps)}; "
+                f"{other}; one process against itself (run to run): "
+                f"{text(step_gaps(refs[1][kind], refs[0][kind], init))} ({card})")
+            limits = DP_LIMITS[kind]
+            over = {k: gaps[k] for k in limits if gaps[k] > limits[k]}
+            if gaps["ema_differ"] or gaps["n"] != (DP_BATCH, DP_BATCH) or over:
+                raise AssertionError(f"dp {kind}: against {against} {gaps}; limits {limits}")
+        a = ranks[0]
+        for r, b in enumerate(ranks[1:], 1):
+            if b["writes"] or any(b["printed"]):
+                raise AssertionError(f"dp: rank {r} wrote {b['writes']} or printed")
+            if a["trained"] != b["trained"]:
+                raise AssertionError(f"dp: rank {r}'s params differ from rank 0's after a CLI "
+                                     f"epoch")
+            if a["loaded"] != b["loaded"]:
+                raise AssertionError(f"dp: rank {r} loaded other tensors than rank 0")
+            if a["int_result"] != b["int_result"]:
+                raise AssertionError(f"dp: int_op_only's results differ: {a['int_result']} "
+                                     f"{b['int_result']}")
+        if not {"latest_checkpoint.npz", "int_op_only_model.npz"} <= set(a["writes"]):
+            raise AssertionError(f"dp: rank 0 wrote {a['writes']}")
+        want = f"Loaded checkpoint {os.path.join(tmp, 'log')} at epoch {TRAIN_EPOCHS}."
+        if want not in a["printed"][1]:
+            raise AssertionError(f"dp: the resumed CLI did not print {want!r}")
+        if len(a["trained"]) != 2 or a["loaded"][0][0] != a["trained"][0]:
+            raise AssertionError("dp: the resumed ranks loaded other tensors than were saved")
+        n_val = max(TRAIN_SYNTHETIC // 4, 1)
+        used = {r: {k: n for k, n in rk["int_launches"].items() if n} for r, rk in
+                enumerate(ranks)}
+        if a["int_result"]["images"] != n_val or (
+                dev.type == "cuda" and not all(
+                    {"int8_gemm", "conv_int8", "stem_pool"} <= set(u) for u in used.values())):
+            raise AssertionError(f"dp: int_op_only took {a['int_result']}, launches {used}")
+        log(f"dp: run.main on {world} ranks (a synthetic epoch of {TRAIN_SYNTHETIC} images at "
+            f"global batch {DP_BATCH}, then resumed for one more, then int_op_only on the "
+            f"checkpoint): rank 0 alone wrote ({', '.join(sorted(set(a['writes'])))}) and "
+            f"printed; the resume loaded the same params and state on every rank, the params "
+            f"those saved after the first epoch; every rank's params bitwise equal after each "
+            f"epoch; int_op_only's reduced result alike on every rank ({a['int_result']}), "
+            f"launches per rank {used}; the ranks' processes {t_ranks:.1f} s wall from their "
+            f"start, the one-process steps {t_ref:.1f} s")
+
+        # the CLI at world size 1 through init_dist: NCCL on a card
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        init_dist(f"tcp://127.0.0.1:{port}", 0, 1, backend=backend)
+        try:
+            t0 = time.perf_counter()
+            one = train_yaml(tmp, "dp_one", TRAIN_CONFIG, log_dir=os.path.join(tmp, "one"))
+            _, lines, _ = run_cli("dp world 1", [f"app:{one}", f"bs:{TRAIN_BATCH}"], dev)
+            if (get_world_size() != 1 or "Start training." not in lines
+                    or not os.path.exists(os.path.join(tmp, "one", "latest_checkpoint.npz"))):
+                raise AssertionError("dp: the CLI at world size 1 did not train and save")
+            log(f"dp: run.main at world size 1 in a {torch.distributed.get_backend()} process "
+                f"group joined through init_dist: trained an epoch and saved, "
+                f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            torch.distributed.destroy_process_group()
+    log(f"dp phase: {time.perf_counter() - t_start:.1f} s wall ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp-cards", type=int, default=0,
+                    help="run the dp phase alone, its ranks one per card over NCCL on this many "
+                         "cards (at least 2)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2170,6 +2570,18 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if args.dp_cards:
+        if not 2 <= args.dp_cards <= torch.cuda.device_count():
+            print(f"chip_smoke: --dp-cards {args.dp_cards} with "
+                  f"{torch.cuda.device_count()} card(s)", file=sys.stderr)
+            return 1
+        dp_phase(args.seed, card, device, world=args.dp_cards, backend="nccl")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     rng = np.random.RandomState(args.seed)
     images = torch.from_numpy(
@@ -2230,6 +2642,7 @@ def main(argv=None) -> int:
     log(f"train phase: {time.time() - t0:.1f} s wall; the int_op_only CLI run launched "
         f"{train_launches}; all {len(train_calls)} kernel calls of chip_smoke's engine on the "
         f"trained checkpoint equal to their plain versions ({card})")
+    dp_phase(args.seed, card, device)
     kernels = []
     for name, k in KERNELS.items():
         row = table[name]

@@ -8,12 +8,22 @@ Parity with the reference's torchvision pipelines (fix_train.py:299-415):
   the fixed-point head (mean 0 / std 1), normalized mode uses ImageNet
   mean/std (fix_train.py:302-307).
 
-Implemented on PIL + numpy with a threaded prefetch loader; batches are
-numpy NHWC float32, which the trainer moves to the device.  For multi-host
+A threaded prefetch loader yields numpy NHWC float32 batches, which the
+trainer moves to the device.  It takes the reference's paths, chosen as
+the reference chooses them (`f8net_tpu/data/pipeline.py:250-266`):
+  native_jpeg  the file's bytes decoded by libjpeg on native threads
+               (`native.c_decode_jpeg_batch`, without the GIL; PIL for an
+               image it rejects), then crop, resize, flip and normalize in
+               C++ (`native.c_train_preprocess_batch` /
+               `c_eval_preprocess_batch`): where the native library built
+               with libjpeg and the dataset has `load_bytes`;
+  native       PIL decodes, C++ resizes: where the library built without
+               libjpeg, or for a dataset of PIL images;
+  pil          PIL and numpy throughout: where the library cannot be built.
+`Loader.path` says which one its last iteration took.  Every path gives
+the reference's batches bit for bit on the same inputs.  For multi-process
 training each process takes a strided index shard, the analog of
-DistributedSampler (fix_train.py:374-379).  The reference's native decode
-and resize path (`f8net_tpu/native`) is not ported: every batch here is
-the reference's PIL path, bit for bit.
+DistributedSampler (fix_train.py:374-379).
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ import os
 import queue
 import random
 import threading
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
 
 try:
     from PIL import Image
@@ -58,13 +70,9 @@ def sample_crop(w: int, h: int, rng: random.Random):
     return y0, x0, ch, cw, flip
 
 
-def train_transform(
-    img,
-    rng: random.Random,
-    size: int = 224,
-    normalize: bool = False,
-):
-    """RandomResizedCrop(size) + HFlip (PIL applies the crop/resize/flip)."""
+def train_transform(img, rng: random.Random, size: int = 224, normalize: bool = False):
+    """RandomResizedCrop(size) + HFlip (the crop sampled as the native path
+    samples it; PIL applies the crop, resize and flip)."""
     w, h = img.size
     y0, x0, ch, cw, flip = sample_crop(w, h, rng)
     img = img.crop((x0, y0, x0 + cw, y0 + ch))
@@ -74,12 +82,7 @@ def train_transform(
     return _to_array(img, normalize)
 
 
-def eval_transform(
-    img,
-    size: int = 224,
-    resize: int = 256,
-    normalize: bool = False,
-):
+def eval_transform(img, size: int = 224, resize: int = 256, normalize: bool = False):
     """Resize(shorter side -> resize) + CenterCrop(size)."""
     w, h = img.size
     if w < h:
@@ -122,6 +125,12 @@ class ImageFolderDataset:
         path, label = self.samples[idx]
         return Image.open(path), label
 
+    def load_bytes(self, idx: int) -> Tuple[bytes, int]:
+        """The file's bytes (the native JPEG decode reads these)."""
+        path, label = self.samples[idx]
+        with open(path, "rb") as f:
+            return f.read(), label
+
 
 class SyntheticDataset:
     """Deterministic random images; for tests and throughput benches."""
@@ -141,9 +150,13 @@ class SyntheticDataset:
 class Loader:
     """Threaded prefetch loader yielding (images NHWC float32, labels int32).
 
-    shard/num_shards implement per-host data sharding; seed+epoch drive the
-    shuffle so all hosts agree on the permutation (the sampler.set_epoch
-    pattern, fix_train.py:743).
+    shard/num_shards implement per-process data sharding; seed+epoch drive
+    the shuffle so all processes agree on the permutation (the
+    sampler.set_epoch pattern, fix_train.py:743).  aug_seed (default: seed)
+    seeds the augmentation stream (crops, flips) alone, so that processes
+    can draw different augmentations of one shared permutation.
+    decode_threads: native JPEG decode threads per worker (default: the
+    cores over the workers).
     """
 
     def __init__(
@@ -157,6 +170,8 @@ class Loader:
         num_shards: int = 1,
         num_workers: int = 4,
         seed: int = 0,
+        decode_threads: int = 0,
+        aug_seed: Optional[int] = None,
     ):
         self.ds = dataset
         self.bs = batch_size
@@ -167,7 +182,12 @@ class Loader:
         self.num_shards = num_shards
         self.workers = max(1, num_workers)
         self.seed = seed
+        self.aug_seed = seed if aug_seed is None else aug_seed
+        # the decode releases the GIL: workers x decode_threads should about
+        # cover the cores, not each worker take all of them
+        self.decode_threads = decode_threads or max(1, (os.cpu_count() or 4) // self.workers)
         self.epoch = 0
+        self.path: Optional[str] = None  # the path of the last iteration
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -182,39 +202,103 @@ class Loader:
             rng.shuffle(idx)
         return idx[self.shard :: self.num_shards]
 
+    @property
+    def _resize(self) -> int:
+        # the eval resize scales with the crop (256 for the reference's 224)
+        return int(self.image_size * 256 / 224)
+
+    def choose_path(self) -> str:
+        """'native_jpeg', 'native' or 'pil' (module docstring)."""
+        if not native.imageops_available():
+            return "pil"
+        if native.jpeg_available() and hasattr(self.ds, "load_bytes"):
+            return "native_jpeg"
+        return "native"
+
     def _load_one(self, i: int, rng: random.Random):
         img, label = self.ds.load(i)
         if self.train:
             a = train_transform(img, rng, self.image_size, self.normalize)
         else:
-            # shorter-side resize scales with crop size (256 for the
-            # reference's 224 crops)
-            a = eval_transform(
-                img,
-                self.image_size,
-                resize=int(self.image_size * 256 / 224),
-                normalize=self.normalize,
-            )
+            a = eval_transform(img, self.image_size, resize=self._resize,
+                               normalize=self.normalize)
         return a, label
+
+    def _jpeg_raws(self, batch, labels, rng):
+        """Decode a batch natively (`f8net_tpu/data/pipeline.py:272-318`):
+        (images, crop boxes, flips), the boxes and flips for training only;
+        PIL decodes any image the native decoder rejects."""
+        blobs = []
+        for j, i in enumerate(batch):
+            b, labels[j] = self.ds.load_bytes(int(i))
+            blobs.append(b)
+        dims = native.c_jpeg_dims_batch(blobs)
+        boxes, flips = [], []
+        if self.train:
+            for j, (w0, h0, ok) in enumerate(dims):
+                if not ok:  # PIL knows the true size
+                    w0, h0 = self.ds.load(int(batch[j]))[0].size
+                y0, x0, ch, cw, fl = sample_crop(w0, h0, rng)
+                boxes.append((y0, x0, ch, cw))
+                flips.append(1 if fl else 0)
+        # a full-scale decode: the dims just parsed are the output's
+        outs = native.c_decode_jpeg_batch(blobs, num_threads=self.decode_threads, dims=dims)
+        raws = [arr if arr is not None  # else PIL decodes it
+                else np.asarray(self.ds.load(int(i))[0].convert("RGB"), np.uint8)
+                for i, arr in zip(batch, outs)]
+        return raws, boxes, flips
+
+    def _pil_raws(self, batch, labels, rng):
+        """PIL decodes a batch for the native resize (`f8net_tpu/data/
+        pipeline.py:334-344`, `:362-381`): (images, crop boxes, flips)."""
+        raws, boxes, flips = [], [], []
+        for j, i in enumerate(batch):
+            img, labels[j] = self.ds.load(int(i))
+            raws.append(np.asarray(img.convert("RGB"), np.uint8))
+            if self.train:
+                y0, x0, ch, cw, fl = sample_crop(*img.size, rng)
+                boxes.append((y0, x0, ch, cw))
+                flips.append(1 if fl else 0)
+        return raws, boxes, flips
+
+    def _native_batch(self, batch, labels, rng, jpeg: bool) -> np.ndarray:
+        raws, boxes, flips = (self._jpeg_raws if jpeg else self._pil_raws)(batch, labels, rng)
+        mean = IMAGENET_MEAN if self.normalize else None
+        std = IMAGENET_STD if self.normalize else None
+        if self.train:
+            return native.c_train_preprocess_batch(
+                raws, np.asarray(boxes, np.int32), np.asarray(flips, np.uint8),
+                self.image_size, mean=mean, std=std, num_threads=2)
+        return native.c_eval_preprocess_batch(raws, resize=self._resize, size=self.image_size,
+                                              mean=mean, std=std, num_threads=2)
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         indices = list(self._indices())
         out_q: "queue.Queue" = queue.Queue(maxsize=self.workers * 2)
         batches = [indices[i : i + self.bs] for i in range(0, len(indices), self.bs)]
+        self.path = path = self.choose_path()
 
         stop = threading.Event()
 
         def worker(worker_id: int):
-            rng = random.Random(self.seed * 1000003 + self.epoch * 97 + worker_id)
-            for bi in range(worker_id, len(batches), self.workers):
-                if stop.is_set():
-                    return
-                batch = batches[bi]
-                labels = np.empty((len(batch),), np.int32)
-                imgs = np.empty((len(batch), self.image_size, self.image_size, 3), np.float32)
-                for j, i in enumerate(batch):
-                    imgs[j], labels[j] = self._load_one(int(i), rng)
-                out_q.put((bi, imgs, labels))
+            rng = random.Random(self.aug_seed * 1000003 + self.epoch * 97 + worker_id)
+            try:
+                for bi in range(worker_id, len(batches), self.workers):
+                    if stop.is_set():
+                        return
+                    batch = batches[bi]
+                    labels = np.empty((len(batch),), np.int32)
+                    if path == "pil":
+                        imgs = np.empty((len(batch), self.image_size, self.image_size, 3),
+                                        np.float32)
+                        for j, i in enumerate(batch):
+                            imgs[j], labels[j] = self._load_one(int(i), rng)
+                    else:
+                        imgs = self._native_batch(batch, labels, rng, path == "native_jpeg")
+                    out_q.put((bi, imgs, labels))
+            except Exception as e:  # handed to the consumer, which raises it
+                out_q.put((None, worker_id, e))
+                return
             out_q.put((None, worker_id, None))
 
         threads = [
@@ -230,6 +314,8 @@ class Loader:
             while done < self.workers or pending or next_bi < len(batches):
                 bi, imgs, labels = out_q.get()
                 if bi is None:
+                    if labels is not None:
+                        raise RuntimeError(f"Loader worker {imgs} failed") from labels
                     done += 1
                     if done == self.workers and next_bi >= len(batches):
                         break

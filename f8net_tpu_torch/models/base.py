@@ -24,11 +24,12 @@ from ..utils.device import resolve_device
 class Model:
     """A built model: immutable graph plus the walk order the engine uses.
 
-    forward(params, state, x, mode='eval', cfg=None) -> (logits, new state):
-    mode is 'train', 'eval' or 'calib'; cfg defaults to the build's and may
-    be overridden per call (int_infer for the integer-simulation eval) as
-    long as its structural knobs (normalize, format_type, pool_fusing)
-    match the build."""
+    forward(params, state, x, mode='eval', cfg=None, group=None) -> (logits,
+    new state): mode is 'train', 'eval' or 'calib'; cfg defaults to the
+    build's and may be overridden per call (int_infer for the
+    integer-simulation eval) as long as its structural knobs (normalize,
+    format_type, pool_fusing) match the build; group: the process group
+    whose global batch the training statistics span (data parallelism)."""
 
     name: str
     graph: LayerGraph
@@ -59,6 +60,6 @@ class Model:
                 state[lname] = init_linear_state(self.cfg, spec, device)
         return params, state
 
-    def apply(self, params, state, x, mode: str = "eval", cfg=None):
+    def apply(self, params, state, x, mode: str = "eval", cfg=None, group=None):
         """QAT forward of NHWC float images x -> (logits, new state)."""
-        return self.forward(params, state, x, mode, cfg or self.cfg)
+        return self.forward(params, state, x, mode, cfg or self.cfg, group)

@@ -20,6 +20,14 @@ Float32 convolutions and matmuls run in full float32 on the card (TF32 off,
 which lies on no grid, and TF32 would move sigma and so the fraclens.  The
 reference's `_conv2d_bf16` (`cfg.train_conv_bf16`) was the TPU MXU's
 one-pass trick and is not ported: the flag raises.
+
+Data parallelism: given a process group, the training forward's batch
+statistics span the global batch that the group's processes hold in
+shards -- the input fraclen's metric (or grid search), BatchNorm's batch
+mean, variance and count -- as in the JAX package's jitted step over
+Mesh('data'), where GSPMD inserts the collectives.  The gradient flows
+through those all-reduces (`parallel.AllReduceSum`).  Weight statistics
+need none: every process holds the same weights.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fxp import (
-    fix_quant, fraclen_gridsearch, metric2fraclen, metric_fn, sqrt_rn, ste_quant,
+    fix_quant, fraclen_gridsearch, global_moments, metric2fraclen, metric_fn, sqrt_rn,
+    ste_quant,
 )
 from ..utils.device import float32_exact
 from .pool import avgpool_shift_for
@@ -160,9 +169,10 @@ def _input_metric_axes(cfg, ndim: int):
     return tuple(range(ndim))
 
 
-def _quantize_input(graph, cfg, name, state, x, training: bool):
+def _quantize_input(graph, cfg, name, state, x, training: bool, group=None):
     """(x quantized, the fraclen used, state updates): the fresh metric's
-    fraclen and an EMA update in training, the rounded EMA at eval."""
+    fraclen (over the group's global batch, given a group) and an EMA
+    update in training, the rounded EMA at eval."""
     spec = graph[name]
     ds = spec.double_side
     updates = {}
@@ -186,11 +196,11 @@ def _quantize_input(graph, cfg, name, state, x, training: bool):
     ema = state[owner]["input_fl_ema"]
     if training:
         if cfg.format_grid_search:
-            fl = fraclen_gridsearch(x, x_wl, caxis, ds).reshape(1)
+            fl = fraclen_gridsearch(x, x_wl, caxis, ds, group).reshape(1)
         else:
             if x_wl != 8:
                 raise NotImplementedError("word lengths other than 8 bit")
-            m = metric_fn(cfg.metric, _input_metric_axes(cfg, x.ndim))(x)
+            m = metric_fn(cfg.metric, _input_metric_axes(cfg, x.ndim), group)(x)
             fl = metric2fraclen(m, cfg.metric, 1.0, ds)
             fl = torch.clamp(fl, 0.0, float(x_wl - int(ds))).reshape(-1)
         x_val = ste_quant(x, fl, x_wl, caxis, ds, False)
@@ -263,9 +273,11 @@ def _merged_view(state, updates):
     return merged
 
 
-def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: str = "eval"):
+def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: str = "eval",
+                  group=None):
     """One fused quantized ConvBN forward (`conv_bn_apply`,
-    f8net_tpu/nn/quant_layers.py:346-482); mode 'train', 'eval' or 'calib'.
+    f8net_tpu/nn/quant_layers.py:346-482); mode 'train', 'eval' or 'calib';
+    `group`: the process group whose global batch the statistics span.
     Returns (Act, state updates).  In training, the BN statistics come from
     a second conv on the clip-scaled input, and the output conv uses them
     folded into the quantized weights; fix_scaling of this layer and of the
@@ -282,7 +294,7 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
     p, eps = params[name], cfg.bn_eps
     gamma, beta = p["gamma"], p["beta"]
 
-    x_val, in_fl, updates = _quantize_input(graph, cfg, name, state, x, training)
+    x_val, in_fl, updates = _quantize_input(graph, cfg, name, state, x, training, group)
     live = _merged_view(state, updates)
     fs_self = fix_scaling(graph, cfg, name, params, live)
     following = graph.following_of(name)
@@ -293,11 +305,16 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
     # -- BatchNorm statistics
     if training:
         y0 = conv2d_nhwc(x_val if cfg.floating_wo_clip else fs_self * x_val, w, spec)
-        bn_mean = torch.mean(y0, (0, 1, 2))
-        var_b = torch.var(y0, (0, 1, 2), correction=0)
+        if group is None:
+            bn_mean = torch.mean(y0, (0, 1, 2))
+            var_b = torch.var(y0, (0, 1, 2), correction=0)
+            n = y0.numel() / spec.out_ch
+            var_u = var_b * (n / max(n - 1.0, 1.0))
+        else:
+            mean64, var64, n = global_moments(y0, (0, 1, 2), group)
+            bn_mean, var_b = mean64.to(y0.dtype), var64.to(y0.dtype)
+            var_u = var_b * (n / torch.clamp(n - 1.0, min=1.0)).to(y0.dtype)
         bn_std = sqrt_rn(var_b + eps)
-        n = y0.numel() / spec.out_ch
-        var_u = var_b * (n / max(n - 1.0, 1.0))
         st = state[name]
         if mode == "calib":
             cnt = st["bn_count"] + 1.0
@@ -378,12 +395,14 @@ def _linear_scale(cfg, spec: LinearSpec, w_ref, w_q):
     raise NotImplementedError(cfg.rescale_type)
 
 
-def linear_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: str = "eval"):
+def linear_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: str = "eval",
+                 group=None):
     """Quantized fully-connected forward (`linear_apply`,
     f8net_tpu/nn/quant_layers.py:490-583).  The raw weight is quantized
     first, then standardized (training) or the scale divided into the bias
     (eval); the clip scale multiplies the quantized input in training and
-    is folded into the bias at eval.  BN calibration leaves it in eval."""
+    is folded into the bias at eval.  BN calibration leaves it in eval.
+    `group` as in conv_bn_apply."""
     spec = graph[name]
     if not isinstance(spec, LinearSpec):
         raise TypeError(f"{name} is not a Linear layer")
@@ -391,7 +410,7 @@ def linear_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: 
     x = as_act(x_act).x
     p = params[name]
 
-    x_val, in_fl, updates = _quantize_input(graph, cfg, name, state, x, training)
+    x_val, in_fl, updates = _quantize_input(graph, cfg, name, state, x, training, group)
     fs_self = fix_scaling(graph, cfg, name, params, _merged_view(state, updates))
 
     rescale = cfg.rescale_forward

@@ -17,8 +17,12 @@ from .quant_layers import Act, _quantize_input, as_act, conv_bn_apply, linear_ap
 
 
 class Runner:
-    def __init__(self, graph, cfg, params, state, mode: str = "eval"):
+    """`group`: the process group whose global batch the training
+    forward's statistics span (None: this process's batch)."""
+
+    def __init__(self, graph, cfg, params, state, mode: str = "eval", group=None):
         self.graph = graph
+        self.group = group
         self.cfg = cfg
         self.params = params
         self.mode = mode
@@ -31,12 +35,14 @@ class Runner:
             self.state[lname] = d
 
     def conv(self, name: str, act) -> Act:
-        y, upd = conv_bn_apply(self.graph, self.cfg, name, self.params, self.state, act, self.mode)
+        y, upd = conv_bn_apply(self.graph, self.cfg, name, self.params, self.state, act, self.mode,
+                               self.group)
         self._merge(upd)
         return y
 
     def linear(self, name: str, act) -> Act:
-        y, upd = linear_apply(self.graph, self.cfg, name, self.params, self.state, act, self.mode)
+        y, upd = linear_apply(self.graph, self.cfg, name, self.params, self.state, act, self.mode,
+                              self.group)
         self._merge(upd)
         return y
 
@@ -53,7 +59,8 @@ class Runner:
         the conv makes it when it reads this tensor."""
         a = as_act(act)
         x_val, _, _ = _quantize_input(
-            self.graph, self.cfg, name, self.state, a.x, self.mode in ("train", "calib")
+            self.graph, self.cfg, name, self.state, a.x, self.mode in ("train", "calib"),
+            self.group,
         )
         return Act(x_val, None)
 

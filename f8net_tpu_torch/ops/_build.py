@@ -8,7 +8,10 @@ sources, and a changed source builds anew.  Builds go to `_build/` in the
 package (listed in .gitignore), one nvcc per source, all started together.
 
 Nothing here runs when the module is imported: a library is built or
-loaded on the first launch of its kernel, or by `build_all`.
+loaded on the first launch of its kernel, or by `build_all`.  The naming
+and the compile into a temporary file that replaces nothing until it has
+succeeded (`digest_path`, `start_build`, `finish_build`) also build the
+native image library (`native/imageops.py`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
 
@@ -51,16 +54,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def digest_path(stem: str, flags: Iterable[str], sources: Iterable[Path]) -> Path:
+    """`_build/<stem>-<digest>.so`, the digest taken over the flags and
+    each source's name and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return h.hexdigest()[:16]
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def start_build(command: Callable[[Path], List[str]], out: Path):
+    """Starts the compile `command(tmp)` into a temporary file beside
+    `out`, named by this process (concurrent builds each write their
+    own); returns (process, tmp) for finish_build."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp
+
+
+def finish_build(proc, tmp: Path, out: Path) -> Tuple[bool, str]:
+    """Waits for a start_build's compile; moves its output onto `out`
+    (atomically) where it succeeded.  Returns (succeeded, its output)."""
+    log = proc.communicate()[0]
+    if proc.returncode == 0:
+        os.replace(tmp, out)
+    else:
+        tmp.unlink(missing_ok=True)
+    return proc.returncode == 0, log
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+    return digest_path(name, NVCC_FLAGS, sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"])
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -68,7 +95,6 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     nvcc process per source, all started together.  Returns
     {name: nvcc output} for the sources it compiled; raises with that
     output if any compile fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
     nvcc = None
     procs = {}
     for name in names:
@@ -76,20 +102,14 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-            out,
-        )
+        src = CSRC / f"{name}.cu"
+        procs[name] = (*start_build(lambda tmp: [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    out), out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
+        ok, logs[name] = finish_build(proc, tmp, out)
         (BUILD_DIR / f"{name}.log").write_text(logs[name])
-        if proc.returncode == 0:
-            os.replace(tmp, out)
-        else:
+        if not ok:
             failed.append(name)
     if failed:
         raise RuntimeError(

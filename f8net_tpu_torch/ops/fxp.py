@@ -18,11 +18,21 @@ Numerical contract, bit for bit with the JAX package:
 `shift_requant_f32` and `requant_f32_eligible` were TPU workarounds for the
 cost of integer epilogues on the VPU; the port uses the integer form
 everywhere.
+
+`metric_fn` and `fraclen_gridsearch` take a process group: with one, the
+statistic spans the global batch that the group's processes hold in
+shards, as the JAX package's jitted step over Mesh('data') computes it
+(sums in float64, all-reduced; the variance in two passes, about the
+global mean).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..parallel.dist import all_reduce_sum
 
 INT32_MAX = (1 << 31) - 1
 # Coefficient tables of F8Net's semi-empirical sigma -> fraclen rule (copy of
@@ -159,9 +169,20 @@ def metric2fraclen(metric, metric_name: str = "std", n: float = 1.0,
 
 
 def fraclen_gridsearch(x: torch.Tensor, wl: int = 8, axis: int = 0,
-                       signed: bool = True) -> torch.Tensor:
+                       signed: bool = True, group=None) -> torch.Tensor:
     """The first fraclen in [0, wl - signed] with the least RMS error of
-    quantizing x, as a float32 scalar."""
+    quantizing x, as a float32 scalar; with a process group, the error of
+    the global tensor whose shards the processes hold (each candidate's
+    squared-error sum all-reduced)."""
+    if group is not None:
+        with torch.no_grad():
+            sums = [torch.sum((x - fix_quant(x, wl, float(fl), axis, signed)[0]) ** 2,
+                              dtype=torch.float64)
+                    for fl in range(wl + 1 - int(signed))]
+            tot = all_reduce_sum(torch.stack(sums + [sums[0].new_tensor(float(x.numel()))]),
+                                 group)
+            errs = sqrt_rn((tot[:-1] / tot[-1]).to(x.dtype))
+        return torch.argmin(errs).to(torch.float32)
     errs = [
         sqrt_rn(torch.mean((x - fix_quant(x, wl, float(fl), axis, signed)[0]) ** 2))
         for fl in range(wl + 1 - int(signed))
@@ -169,10 +190,16 @@ def fraclen_gridsearch(x: torch.Tensor, wl: int = 8, axis: int = 0,
     return torch.argmin(torch.stack(errs)).to(torch.float32)
 
 
-def metric_fn(name: str, axes):
+def metric_fn(name: str, axes, group=None):
     """The statistic metric2fraclen reads, reduced over `axes`; std is the
-    sample standard deviation (ddof 1), as torch.std and the reference's."""
+    sample standard deviation (ddof 1), as torch.std and the reference's.
+    With a process group, the statistic of the global tensor whose shards
+    (along the batch axis) the processes hold."""
     axes = tuple(axes)
+    if group is not None:
+        if name not in ("std", "mae", "rms"):
+            raise NotImplementedError(f"metric {name!r}")
+        return lambda x: _global_metric(name, x, axes, group)
     if name == "std":
         return lambda x: sqrt_rn(torch.var(x, dim=axes, correction=1))
     if name == "mae":
@@ -201,3 +228,37 @@ def pack_real(x: torch.Tensor, fl: int, signed: bool) -> torch.Tensor:
     if signed:
         return v.clamp(-127, 127).to(torch.int8)
     return (v.clamp(0, 255) - 128).to(torch.int8)
+
+
+
+def _global_mean(v: torch.Tensor, axes, group):
+    """(mean over `axes`, kept as size-1 dims, and the element count) of
+    the global tensor whose shards the group's processes hold; float64,
+    differentiable: the sum and the count all-reduced together."""
+    s = torch.sum(v, axes, keepdim=True, dtype=torch.float64)
+    n = float(math.prod(v.shape[a] for a in axes))
+    tot = all_reduce_sum(torch.cat([s.reshape(-1), s.new_tensor([n])]), group)
+    return (tot[:-1] / tot[-1]).reshape(s.shape), tot[-1]
+
+
+def global_moments(x: torch.Tensor, axes, group, ddof: int = 0):
+    """(mean, variance, count) over `axes` of the global tensor whose shards
+    the group's processes hold, in float64 and differentiable: the mean
+    first, then the squared deviations about it all-reduced (two passes:
+    the one-pass E[x^2] - E[x]^2 cancels).  The count is a float64 tensor;
+    the variance divides by count - ddof."""
+    axes = tuple(axes)
+    mean, count = _global_mean(x, axes, group)
+    sq = torch.sum((x.to(torch.float64) - mean) ** 2, axes)
+    var = all_reduce_sum(sq, group) / (count - ddof)
+    return mean.reshape(sq.shape), var, count
+
+
+def _global_metric(name: str, x: torch.Tensor, axes, group) -> torch.Tensor:
+    with torch.no_grad():
+        x = x.detach()
+        if name == "std":
+            return sqrt_rn(global_moments(x, axes, group, ddof=1)[1].to(x.dtype))
+        v = torch.abs(x) if name == "mae" else x.to(torch.float64) ** 2
+        m = _global_mean(v, axes, group)[0].squeeze(axes).to(x.dtype)
+        return m if name == "mae" else sqrt_rn(m)

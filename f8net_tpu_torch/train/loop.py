@@ -9,6 +9,15 @@ train step is the model's train-mode forward, the loss, `loss.backward()`
 `sgd_update`, all in full float32 on the card (`utils.float32_exact`: TF32
 off for the backward convs too).  Metrics stay on the device and are read
 once per epoch.
+
+Data parallelism (the JAX package's one jitted step over Mesh('data')):
+given a process group of more than one process, each process steps on its
+shard of the global batch, and every reduction spans the global batch --
+the QAT forward's batch statistics (nn/quant_layers.py), the loss (the
+mean over the global batch), the parameter gradients (all-reduced before
+`sgd_update`, so every process applies the same update to the same
+params) and the metrics (`parallel.all_reduce_metrics`).  With no group,
+or a group of one, the step is the one-process step.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.dist import all_reduce_metrics, all_reduce_min, all_reduce_sum_
 from ..utils.device import float32_exact, resolve_device
 from .optim import sgd_init, sgd_update, weight_decay_mask
 from .schedules import lr_schedule
@@ -34,13 +44,17 @@ def condition_input(images, cfg, plan_head_fl: Optional[int] = None):
     return torch.round(255.0 * images) / 256.0
 
 
-def cross_entropy_loss(logits, labels):
+def cross_entropy_loss(logits, labels, total=None):
     """Mean negative log-likelihood, through the reference's log_softmax:
     logits minus their (constant) row max, minus the log of the summed
-    exponentials."""
+    exponentials.  With `total`, the sum over these rows divided by it (a
+    process's share of the mean over a global batch of `total` rows)."""
     shifted = logits - torch.amax(logits, dim=1, keepdim=True).detach()
     logp = shifted - torch.log(torch.sum(torch.exp(shifted), dim=1, keepdim=True))
-    return -torch.mean(torch.gather(logp, 1, labels.long()[:, None]))
+    nll = torch.gather(logp, 1, labels.long()[:, None])
+    if total is None:
+        return -torch.mean(nll)
+    return -torch.sum(nll) / total
 
 
 def topk_correct(logits, labels, ks=(1, 5)):
@@ -51,36 +65,68 @@ def topk_correct(logits, labels, ks=(1, 5)):
     return {k: torch.sum(match[:, :k]) for k in ks}
 
 
-def _metrics(loss, logits, labels, tcfg):
+def _metrics(loss, logits, labels, tcfg, group=None):
+    """The step's loss, top-k counts and rows; with a group, summed over
+    its processes (one collective: the loss shares add up to the global
+    batch's loss)."""
     metrics = {"loss": loss.detach(), "n": torch.tensor(labels.shape[0], device=logits.device)}
     for k, v in topk_correct(logits.detach(), labels, tcfg.topk).items():
         metrics[f"top{k}"] = v
-    return metrics
+    return metrics if group is None else all_reduce_metrics(metrics, "sum", group)
 
 
 def _detached(state):
     return {lname: {k: v.detach() for k, v in sub.items()} for lname, sub in state.items()}
 
 
-def make_train_step(model, cfg, tcfg):
+def _data_parallel(group) -> bool:
+    return group is not None and torch.distributed.get_world_size(group) > 1
+
+
+def _global_count(labels, group):
+    """The global batch's row count (a float32 tensor on the labels'
+    device), or None without a group."""
+    if group is None:
+        return None
+    n = torch.tensor([float(labels.shape[0])], device=labels.device)
+    return all_reduce_sum_(n, group)[0]
+
+
+def _all_reduce_grads(grads, group) -> None:
+    """Sums every parameter gradient over the group, in place, through one
+    flat buffer (one collective)."""
+    leaves = [g for sub in grads.values() for g in sub.values() if g is not None]
+    flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in leaves]), group)
+    for g, part in zip(leaves, torch.split(flat, [g.numel() for g in leaves])):
+        g.copy_(part.view_as(g))
+
+
+def make_train_step(model, cfg, tcfg, group=None):
     """Returns step(params, state, opt, images, labels, lr) -> (params,
     state, opt, metrics).  params and the momentum buffers are updated in
-    place; images and labels are tensors on the params' device."""
+    place; images and labels are tensors on the params' device.  Given a
+    process group of more than one process, images and labels are this
+    process's shard of the global batch and the step is data parallel
+    (module docstring): metrics are the global batch's."""
+    group = group if _data_parallel(group) else None
     mask = None  # built lazily against the param structure
 
     def step(params, state, opt, images, labels, lr):
         nonlocal mask
         x = condition_input(images, cfg)
+        total = _global_count(labels, group)
         leaves = [p for sub in params.values() for p in sub.values()]
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
         try:
             with float32_exact():
-                logits, new_state = model.forward(params, state, x, "train", cfg)
-                loss = cross_entropy_loss(logits, labels)
+                logits, new_state = model.forward(params, state, x, "train", cfg, group)
+                loss = cross_entropy_loss(logits, labels, total)
                 loss.backward()
             grads = {lname: {k: p.grad for k, p in sub.items()} for lname, sub in params.items()}
+            if group is not None:
+                _all_reduce_grads(grads, group)
             if mask is None:
                 mask = weight_decay_mask(
                     model.graph, params, tcfg.weight_decay_scheme, tcfg.weight_decay
@@ -90,21 +136,26 @@ def make_train_step(model, cfg, tcfg):
             for p in leaves:
                 p.grad = None
                 p.requires_grad_(False)
-        return params, _detached(new_state), opt, _metrics(loss, logits, labels, tcfg)
+        return params, _detached(new_state), opt, _metrics(loss, logits, labels, tcfg, group)
 
     return step
 
 
-def make_eval_step(model, cfg, tcfg, mode: str = "eval"):
+def make_eval_step(model, cfg, tcfg, mode: str = "eval", group=None):
     """step(params, state, images, labels) -> (state, metrics); 'calib'
-    mode returns the calibrated BN state, 'eval' the state unchanged."""
+    mode returns the calibrated BN state, 'eval' the state unchanged.
+    Given a process group of more than one process, a 'calib' step's batch
+    statistics and metrics span the global batch, as the train step's do;
+    an 'eval' step's forward reads no statistic, and its metrics stay this
+    process's (the Trainer reduces them per epoch)."""
+    group = group if mode == "calib" and _data_parallel(group) else None
 
     @torch.no_grad()
     def step(params, state, images, labels):
         x = condition_input(images, cfg)
-        logits, new_state = model.forward(params, state, x, mode, cfg)
-        loss = cross_entropy_loss(logits, labels)
-        return new_state, _metrics(loss, logits, labels, tcfg)
+        logits, new_state = model.forward(params, state, x, mode, cfg, group)
+        loss = cross_entropy_loss(logits, labels, _global_count(labels, group))
+        return new_state, _metrics(loss, logits, labels, tcfg, group)
 
     return step
 
@@ -113,17 +164,37 @@ class Trainer:
     """Orchestrates epochs: train -> val -> checkpoint, with calib and
     tiny-finetuning support (the reference's Trainer).  Batches come from a
     loader as numpy NHWC float32 images and int labels (or tensors); each is
-    moved to `device` ("cuda", the default, raises without a card)."""
+    moved to `device` ("cuda", the default, raises without a card).
 
-    def __init__(self, model, cfg, tcfg, log=print, device="cuda"):
+    Given a process group of more than one process (data parallelism), each
+    process's loader yields its shard of every global batch; the train and
+    calib steps run in lockstep (a process whose shard has more batches
+    than another's stops with the fewest: the global batches a process
+    would take alone are dropped), and the results are the global
+    batches'."""
+
+    def __init__(self, model, cfg, tcfg, log=print, device="cuda", group=None):
         self.model = model
         self.cfg = cfg
         self.tcfg = tcfg
         self.log = log
         self.device = resolve_device(device)
-        self.train_step = make_train_step(model, cfg, tcfg)
+        self.group = group if _data_parallel(group) else None
+        self.train_step = make_train_step(model, cfg, tcfg, self.group)
         self.eval_step = make_eval_step(model, cfg, tcfg)
-        self.calib_step = make_eval_step(model, cfg, tcfg, mode="calib")
+        self.calib_step = make_eval_step(model, cfg, tcfg, mode="calib", group=self.group)
+        self._lockstep: Dict[int, tuple] = {}  # id(loader) -> (loader, its lockstep count)
+
+    def lockstep_steps(self, loader) -> int:
+        """The batches each process takes from `loader` in a train or calib
+        epoch: its length in one process; under data parallelism the least
+        length over the processes (one collective per loader: a Loader's
+        length does not change between epochs)."""
+        if self.group is None:
+            return len(loader)
+        if id(loader) not in self._lockstep:
+            self._lockstep[id(loader)] = (loader, all_reduce_min(len(loader), self.group))
+        return self._lockstep[id(loader)][1]
 
     def init(self, generator: torch.Generator):
         """(params, state, SGD state) with the model's init drawn from
@@ -152,10 +223,14 @@ class Trainer:
         totals: Dict[str, Any] = {}
         nb = 0
         fi = self.tcfg.finetune_iters
+        lockstep = self.group is not None and phase in ("train", "calib")
+        steps = self.lockstep_steps(loader) if lockstep else None
         for batch_idx, (images, labels) in enumerate(loader):
             if phase == "train" and fi is not None and batch_idx >= fi:
                 break
             if phase == "calib" and 0 <= self.tcfg.bn_calib_batch_num == batch_idx:
+                break
+            if lockstep and batch_idx >= steps:
                 break
             images, labels = self._to_device(images, labels)
             if phase == "train":
@@ -177,9 +252,17 @@ class Trainer:
             # accumulate on the device; one host read per epoch
             for k, v in metrics.items():
                 totals[k] = v if k not in totals else totals[k] + v
+        if self.group is not None and not lockstep:
+            # this process's eval totals (the same keys on every process,
+            # also one whose shard was empty)
+            keys = ["loss", "n"] + [f"top{k}" for k in self.tcfg.topk]
+            totals = all_reduce_metrics(dict({k: totals.get(k, 0.0) for k in keys}, batches=nb),
+                                        "sum", self.group)
+            nb = totals.pop("batches")
         keys = list(totals)
         values = torch.stack([totals[k].double() for k in keys]).tolist() if keys else []
         totals = dict(zip(keys, values))
+        nb = int(nb)
         n = max(totals.get("n", 1.0), 1.0)
         results = {"loss": totals.get("loss", 0.0) / max(nb, 1)}
         for k in self.tcfg.topk:

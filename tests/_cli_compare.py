@@ -5,8 +5,8 @@ printed into comparable lines.
 Both runs read the same YAML but for their log directories, and start from
 the same weights: the port's `Model.init` written as an npz checkpoint and
 named as `fp_pretrained_file` (random inits of the two packages cannot be
-matched draw for draw).  The JAX Loader is held on its PIL path, as the
-port's always is.
+matched draw for draw).  Both Loaders are held on their PIL paths (their
+native paths are held against each other in tests/test_torch_data.py).
 """
 
 import contextlib
@@ -19,6 +19,7 @@ import yaml
 
 import f8net_tpu.native as jax_native
 from f8net_tpu import run as jax_cli
+from f8net_tpu_torch import native as port_native
 from f8net_tpu_torch import run as port_cli
 from f8net_tpu_torch.models import get_model
 from f8net_tpu_torch.train import save_checkpoint
@@ -61,6 +62,7 @@ def run_both(tmp_path, monkeypatch, runs: int = 1, **over):
     {'jax': lines, 'port': lines}, each run's phase timings ("1.2s") and
     its own directory replaced by fixed tokens."""
     monkeypatch.setattr(jax_native, "imageops_available", lambda: False)
+    monkeypatch.setattr(port_native, "imageops_available", lambda: False)
     flags = dict(BASE, **over)
     cfg, tcfg, extras = from_flags(flags, flags["batch_size"])
     model = get_model(f"resnet{flags['depth']}", cfg, num_classes=tcfg.num_classes,

@@ -1,9 +1,10 @@
 """The port's input pipeline, flags, meters, importers, fraclen report and
 parity harness against the JAX package's.
 
-All exact: the Loader's batches bitwise equal to the JAX Loader's on its
-PIL path (the JAX side's native decode is switched off by monkeypatching
-`f8net_tpu.native.imageops_available`), `from_flags` field for field on
+All exact: the Loader's batches bitwise equal to the JAX Loader's on each
+of its paths -- native (JPEG decoded by libjpeg or PIL, resized in C++)
+and PIL (both packages' native libraries switched off by monkeypatching
+their `native.imageops_available`) -- `from_flags` field for field on
 every YAML under configs/, the importers' params bitwise, the fraclen
 report's text line for line, and the parity dry run's integize and
 int_op_only modes equal.
@@ -32,6 +33,7 @@ from f8net_tpu.utils import meters as jax_meters
 from f8net_tpu.utils.reporting import fraclen_report as jax_fraclen_report
 from f8net_tpu_torch import data as port_data
 from f8net_tpu_torch import importers as port_importers
+from f8net_tpu_torch import native as port_native
 from f8net_tpu_torch.export import qat_from_numpy, qat_to_numpy
 from f8net_tpu_torch.models import get_model
 from f8net_tpu_torch.parity import MODES, evaluate_parity, print_table
@@ -44,8 +46,9 @@ QAT = dict(format_from_metric=True, metric="std")
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """The JAX Loader on its PIL path, as the port's always is."""
+    """Both Loaders on their PIL paths."""
     monkeypatch.setattr(jax_native, "imageops_available", lambda: False)
+    monkeypatch.setattr(port_native, "imageops_available", lambda: False)
 
 
 def _same_batches(port_loader, jax_loader):
@@ -73,6 +76,7 @@ def test_loader_synthetic_equals_jax(pil_only, train, normalize):
             jaxs.set_epoch(epoch)
             got = _same_batches(ports, jaxs)
             assert sum(len(b[1]) for b in got) == (12 if shard == 0 else 11)
+            assert ports.path == "pil"
 
 
 def _image_folder(root, ext):
@@ -96,6 +100,80 @@ def test_loader_image_folder_equals_jax(pil_only, tmp_path, ext):
             kw = dict(batch_size=4, train=train, image_size=32, shard=shard, num_shards=2,
                       num_workers=2, seed=5)
             _same_batches(port_data.Loader(pds, **kw), jax_data.Loader(jds, **kw))
+
+
+def _native_tree(root, ext, seed=3):
+    """An ImageFolder tree for the native path: sizes from 33 to 201 px;
+    among the JPEGs one CMYK file, which the native decoder rejects and
+    both packages take through PIL."""
+    rng = np.random.RandomState(seed)
+    sizes = [(200, 150), (47, 61), (150, 201), (90, 120), (64, 40), (180, 180), (33, 75)]
+    for i in range(13):
+        h, w = sizes[i % len(sizes)]
+        d = os.path.join(root, f"class{i % 3}")
+        os.makedirs(d, exist_ok=True)
+        img = Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8))
+        if ext == "jpg":
+            img = img.convert("CMYK") if i == 4 else img
+            img.save(os.path.join(d, f"im{i:02d}.jpg"), quality=85)
+        else:
+            img.save(os.path.join(d, f"im{i:02d}.png"))
+    return root
+
+
+@pytest.mark.parametrize("ext", ["png", "jpg"])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_loader_native_equals_jax(tmp_path, ext, normalize):
+    """The port's Loader on its native path against the JAX Loader on its
+    own (not forced to PIL): train and eval, shards 0 and 1 of 2, two
+    epochs, bitwise."""
+    root = _native_tree(str(tmp_path / ext), ext)
+    pds, jds = port_data.ImageFolderDataset(root), jax_data.ImageFolderDataset(root)
+    assert jax_native.imageops_available() and jax_native.jpeg_available()
+    for train in (True, False):
+        for shard in (0, 1):
+            kw = dict(batch_size=3, train=train, normalize=normalize, image_size=16,
+                      shard=shard, num_shards=2, num_workers=2, seed=5, decode_threads=2)
+            ports, jaxs = port_data.Loader(pds, **kw), jax_data.Loader(jds, **kw)
+            for epoch in (0, 1):
+                ports.set_epoch(epoch)
+                jaxs.set_epoch(epoch)
+                got = _same_batches(ports, jaxs)
+                assert ports.path == "native_jpeg"
+                assert sum(len(b[1]) for b in got) == (7 if shard == 0 else 6)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_loader_native_synthetic_and_forced_pil_decode_equal_jax(monkeypatch, tmp_path, train):
+    """A dataset of PIL images (no file bytes) takes the native resize with
+    PIL's decode, as does an ImageFolder where the library has no JPEG
+    decode (both packages' `native.jpeg_available` switched off, as on a
+    host without libjpeg); both bitwise the JAX Loader's under the same
+    conditions."""
+    kw = dict(batch_size=4, train=train, normalize=True, image_size=24, num_workers=2, seed=2)
+    ports = port_data.Loader(port_data.SyntheticDataset(10, 40, 7, seed=4), **kw)
+    _same_batches(ports, jax_data.Loader(jax_data.SyntheticDataset(10, 40, 7, seed=4), **kw))
+    assert ports.path == "native"
+    monkeypatch.setattr(jax_native, "jpeg_available", lambda: False)
+    monkeypatch.setattr(port_native, "jpeg_available", lambda: False)
+    root = _native_tree(str(tmp_path / "jpg"), "jpg")
+    kw.update(image_size=16)
+    ports = port_data.Loader(port_data.ImageFolderDataset(root), **kw)
+    _same_batches(ports, jax_data.Loader(jax_data.ImageFolderDataset(root), **kw))
+    assert ports.path == "native"
+
+
+def test_loader_raises_a_workers_error(monkeypatch):
+    """A worker's exception reaches the consumer (the reference's Loader
+    would wait for the worker forever)."""
+    def broken(*a, **k):
+        raise OSError("unreadable")
+
+    ds = port_data.SyntheticDataset(8, 16, 3)
+    monkeypatch.setattr(ds, "load", broken)
+    with pytest.raises(RuntimeError, match="worker") as err:
+        list(port_data.Loader(ds, batch_size=2, image_size=16, num_workers=2))
+    assert isinstance(err.value.__cause__, OSError)
 
 
 def test_loader_stops_its_workers_when_left_early():

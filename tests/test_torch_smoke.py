@@ -200,3 +200,21 @@ def test_train_phase_on_cpu(monkeypatch, capsys):
                  "equal to chip_smoke's engine on the same bake",
                  "integize's logits bitwise equal to int_op_only's", "train: wall s per phase"):
         assert want in out, want
+
+
+def test_dp_phase_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's dp phase on the CPU at 32 px, 16 classes, a global
+    batch of 8 over two ranks (gloo): both ranks' steps bitwise alike and
+    within the limits of one process's, the CLI on two ranks (rank 0 alone
+    writes, the resume loads what was saved, the ranks' params equal) and
+    at world size 1 through init_dist."""
+    for name, value in dict(TRAIN_BATCH=8, DP_BATCH=8, TRAIN_SYNTHETIC=16, TRAIN_WORKERS=1,
+                            TRAIN_OVERRIDES={"image_size": 32, "num_classes": 16}).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    chip_smoke.dp_phase(0, "cpu", device="cpu")
+    out = capsys.readouterr().out
+    for kind in ("floating_wo_clip", "qat"):
+        assert f"dp: {kind} step, 32 px, global batch 8 over 2 ranks" in out, kind
+    for want in ("rank 0 alone wrote", "run.main at world size 1 in a gloo process group",
+                 "dp phase:"):
+        assert want in out, want
