@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --dp-cards 4     # the dp phase alone, over NCCL
+    python3 chip_smoke.py --mp-cards 4     # the tp and pp phases alone, over NCCL
 
 Drives the port's four main paths -- ResNet-18, MobileNetV2, ResNet-50 and
 MobileNetV1 integer inference at 224x224, full width, 1000 classes -- each
@@ -12,7 +13,8 @@ calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
 from the seed; the port's own QAT forward and bake; and its training path
 (Trainer, sgd_update, checkpoints, the Loader on its native and PIL paths,
-the run.py CLI, the parity harness, data parallelism over two processes):
+the run.py CLI, the parity harness, data parallelism over two processes);
+and the multi-card inference engines (tensor- and pipeline-parallel):
 
   build    compile every CUDA kernel from f8net_tpu_torch/csrc, one nvcc per
            source, all at once
@@ -127,6 +129,27 @@ the run.py CLI, the parity harness, data parallelism over two processes):
            through init_dist; the phase's wall s.  With --dp-cards N the
            script runs this phase alone (after the build), its N ranks each
            on a card of its own over NCCL, the card init_dist picks
+  tp, pp   (after dp) MP_WORLD spawned ranks that share the card over gloo
+           (parallel.init_dist; a pinned host buffer carries each collective):
+           engine.TPEngine on a (data 1, model 2) mesh (parallel.make_mesh)
+           on all four paths and engine.PPEngine at 2 stages on ResNet-18
+           and MobileNetV2 (batch 8 in PP_MICRO microbatches), every rung,
+           on the engine phase's bundles and batch: every rank's logits
+           bitwise equal to the single-card engine's in the same rung, every
+           kernel call of every rank against its plain version, each rank's
+           launches (counts set to 0 just before its forward) equal to the
+           table its routing at its shard shapes gives
+           (IntEngine.launch_table), one all-reduce per row layer and no
+           all-gather (tp), the wire's bytes and dtypes per forward logged
+           (pp); tp_paired_matmul_int8 and tp_ring_matmul_int8 bitwise equal
+           to their one-process composition; an int32 all-reduce across
+           INT32_MAX equal to its wrapped sum; the phases' wall s.  With
+           --mp-cards N the script runs these phases alone (after the build
+           and the bundles), N ranks each on a card of its own over NCCL: TP
+           on (1, N) and (2, N/2), PP at N stages (2 x N microbatches), the
+           NCCL wrap check, and wall and device ms per forward (strict) of
+           MP_TIMED_PATHS at batch 8 and 64 under TP (1, N) and PP (N stages,
+           MP_TIMED_MICRO microbatches) beside the single-card engine's
   flat     K6, which no engine calls, on the paths' own activations: each of
            ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
            BasicBlocks as two-conv chains on the flat raster (ring masked),
@@ -156,7 +179,8 @@ plain versions compute from the same packed layouts.
 
 The serve, export and train phases' numbers are logged on lines before the
 kernel table, which adds each kernel's launches while serving
-(`serve_launches`).
+(`serve_launches`) and on the tp and pp phases' forwards, summed over the
+ranks (`tp_launches`, `pp_launches`).
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -307,6 +331,17 @@ DP_WORLD, DP_BATCH, DP_LR, DP_TIMEOUT = 2, 64, 0.01, 600.0
 DP_LIMITS = {"floating_wo_clip": {"loss": 3e-6, "bn": 2e-5, "update_l2": 0.03, "update": 0.3,
                                   "momentum": 0.3},
              "qat": {"loss": 1e-3, "bn": 0.04, "update_l2": 0.75}}
+# the tp and pp phases: MP_WORLD ranks sharing the card over gloo (or, with
+# --mp-cards N, N ranks over NCCL, a card each); the TP engine on a (data 1,
+# model MP_WORLD) mesh on MP_TP_PATHS (with --mp-cards also on (2, N/2)),
+# the PP engine at MP_WORLD stages on MP_PP_PATHS, batch 8 in PP_MICRO
+# microbatches at 2 stages (2 x stages at more), every rung; with
+# --mp-cards, MP_TIMED_PATHS timed at each of TIMED_BATCHES under TP (1, N)
+# and PP (N stages, MP_TIMED_MICRO microbatches)
+MP_WORLD, PP_MICRO, MP_TIMED_MICRO, MP_TIMEOUT = 2, 4, 8, 900.0
+MP_TP_PATHS = ("resnet18", "resnet50", "mobilenet_v2", "mobilenet_v1")
+MP_PP_PATHS = ("resnet18", "mobilenet_v2")
+MP_TIMED_PATHS = ("resnet50", "mobilenet_v2")
 # the lines of the CLI's fraclen report (logged as a count)
 REPORT_KEYS = ("layer name:", "alpha:", "master layer", "weight format:", "input format:",
                "fix scaling:", "following layer fix scaling:", "input_fraclen:",
@@ -2546,6 +2581,345 @@ def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
             torch.distributed.destroy_process_group()
     log(f"dp phase: {time.perf_counter() - t_start:.1f} s wall ({card})")
 
+# -- tp and pp ----------------------------------------------------------------
+
+
+def mp_payload(forwards, images, paths, timed: bool) -> dict:
+    """What the tp and pp phases' ranks read: each path's bundle (plan
+    records and int params on the host), its conditioned batch and each
+    rung's single-card logits on it; with `timed`, the conditioned batch of
+    every timed size too."""
+    out = {"paths": {}, "timed": timed}
+    for path in paths:
+        eng = forwards[(path, None)][0]
+        x = eng.condition_input(images[:BATCH])
+        logits = {rung: forwards[(path, rung)][0](x).cpu() for rung in (None, *RUNGS)}
+        out["paths"][path] = dict(
+            image_size=32 * eng.model.pool_kernel, num_classes=eng.model.num_classes,
+            records=[(p.name, p.input_fl, p.weight_fl, p.input_symmetric) for p in eng.plan.layers],
+            params={n: {k: v.cpu() for k, v in d.items() if k in ("w", "b")}
+                    for n, d in eng.params.items()},
+            x=x.cpu(), logits=logits,
+            timed={b: eng.condition_input(images[:b]).cpu() for b in TIMED_BATCHES} if timed else {})
+    return out
+
+
+def mp_model(path: str, entry: dict):
+    model = get_model(path, CFG, num_classes=entry["num_classes"], image_size=entry["image_size"])
+    return model, QuantPlan(tuple(LayerPlan(*r) for r in entry["records"]))
+
+
+def checked_forward(eng, x) -> dict:
+    """One forward of a rank's engine (`eng`: the TPEngine, or a PPEngine
+    whose stage engine is recorded) with every launch counted (counts set
+    to 0 just before it), then every kernel call it made held against its
+    plain version.  Returns its logits (host), launches, calls and the
+    largest error."""
+    target = eng.engine if hasattr(eng, "engine") else eng
+    rec = Recorder(target)
+    reset_launches()
+    logits = eng(x)
+    if logits.device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = launches()
+    errs = [compare(name, args, kw)[1] for name, args, kw in rec.calls]
+    recorded = {name: [c[0] for c in rec.calls].count(name) for name in KERNELS}
+    return dict(logits=logits.cpu(), launches=counts, calls=recorded, n_calls=len(rec.calls),
+                max_abs_err=max(errs, default=0))
+
+
+def rank_wall_ms(mesh, forward, x, reps: int = 5) -> float:
+    """Wall ms per forward on this rank, every rank starting together."""
+    forward(x)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        forward(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rank_device_ms(forward, x):
+    """(device ms, port kernels' device ms) of one forward on this rank:
+    everything torch.profiler records on its card, collectives included."""
+    forward(x)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        forward(x)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    return (sum(e.self_device_time_total for e in ka) / 1e3,
+            sum(e.self_device_time_total for e in ka if "f8::" in e.key) / 1e3)
+
+
+def mp_rank(rank: int, world: int, port: int, settings: dict) -> None:
+    """One rank of the tp and pp phases, in a process of its own (spawned):
+    joins the group over settings["backend"] (gloo: on card 0, which the
+    ranks share; NCCL: on the card init_dist picks), builds every mesh of
+    the phase, and on each runs the TP engine on every path and rung and
+    the PP engine on the pipelined paths, each forward checked
+    (checked_forward); the tp_overlap primitives on the first TP mesh;
+    over NCCL the int32 wrap check and, with settings["timed"], the
+    timings.  Writes what it saw to settings["out"]/rank<r>.pt."""
+    from f8net_tpu_torch.engine import PPEngine, TPEngine, make_pipe_mesh
+    from f8net_tpu_torch.parallel import init_dist, make_mesh, tp_overlap
+    from f8net_tpu_torch.parallel.mesh import shard_batch
+
+    device = torch.device(settings["device"])
+    if device.type == "cuda" and settings["backend"] == "gloo":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(settings["threads"])
+    init_dist(f"tcp://127.0.0.1:{port}", rank, world, backend=settings["backend"])
+    try:
+        data = torch.load(settings["payload"], weights_only=False)
+        res = {"card": torch.cuda.current_device() if device.type == "cuda" else None,
+               "tp": {}, "pp": {}, "timed": {}}
+        rungs = (None, *RUNGS)
+        tp_meshes = [make_mesh(d, m, device=device) for d, m in settings["tp_meshes"]]
+        pp_meshes = [make_pipe_mesh(s, device=device) for s in settings["pp_stages"]]
+        for mesh in tp_meshes:
+            shape = (mesh.size("data"), mesh.size("model"))
+            for path in settings["tp_paths"]:
+                entry = data["paths"][path]
+                model, plan = mp_model(path, entry)
+                for rung in rungs:
+                    eng = TPEngine(model, plan, entry["params"], mesh, device=device,
+                                   **({rung: True} if rung else {}))
+                    mesh.reset_counts()
+                    out = checked_forward(eng, shard_batch(mesh, entry["x"]).to(device))
+                    out.update(collectives=dict(mesh.counts), table=eng.launch_table(),
+                               rows=sum(v == "row" for v in eng.modes.values()))
+                    res["tp"][(shape, path, rung)] = out
+        for mesh in pp_meshes:
+            stages = mesh.size("pipe")
+            micro = PP_MICRO if stages == 2 else 2 * stages
+            for path in settings["pp_paths"]:
+                entry = data["paths"][path]
+                model, plan = mp_model(path, entry)
+                for rung in rungs:
+                    eng = PPEngine(model, plan, entry["params"], mesh, micro, device=device,
+                                   **({rung: True} if rung else {}))
+                    mesh.reset_counts()
+                    out = checked_forward(eng, entry["x"].to(device))
+                    table = eng.engine.launch_table()
+                    out.update(collectives=dict(mesh.counts), wire=eng.wire_bytes, sent=eng.sent,
+                               table={k: micro * v for k, v in table.items()}, layers=eng.layers,
+                               micro=micro)
+                    res["pp"][(stages, path, rung)] = out
+        res["overlap"] = overlap_check(tp_meshes[0], tp_overlap, device, settings["seed"])
+        res["wrap"] = wrap_check(tp_meshes[0], device)
+        if data["timed"]:
+            tp_mesh, pp_mesh = tp_meshes[0], pp_meshes[0]
+            for path in MP_TIMED_PATHS:
+                entry = data["paths"][path]
+                model, plan = mp_model(path, entry)
+                tp = TPEngine(model, plan, entry["params"], tp_mesh, device=device)
+                pp = PPEngine(model, plan, entry["params"], pp_mesh, MP_TIMED_MICRO, device=device)
+                for b, xb in entry["timed"].items():
+                    xb = xb.to(device)
+                    for kind, eng in (("tp", tp), ("pp", pp)):
+                        res["timed"][(kind, path, b)] = (rank_wall_ms(tp_mesh, eng, xb),
+                                                         *rank_device_ms(eng, xb))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        torch.save(res, os.path.join(settings["out"], f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def overlap_operands(seed: int, device):
+    """A MobileNetV2-like expand/project pair (rows of 8 x 28 x 28 pixels):
+    int8 operands and int32 biases, drawn on the host from the seed."""
+    g = torch.Generator().manual_seed(seed)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, dtype=torch.int8).to(device)
+    i32 = lambda n: torch.randint(-(1 << 14), 1 << 14, (n,), generator=g,
+                                  dtype=torch.int32).to(device)
+    m, k, n, o = 8 * 28 * 28, 32, 192, 32
+    return dict(x=i8(m, k), w1=i8(k, n), b1=i32(n), w2=i8(n, o), b2=i32(o), w=i8(k, n), b=i32(n))
+
+
+def overlap_check(mesh, tp_overlap, device, seed: int) -> dict:
+    """tp_paired_matmul_int8 and tp_ring_matmul_int8 on the mesh's model
+    axis against their one-process composition on this rank (the same
+    kernels on the whole operands); raises unless bitwise equal.  Returns
+    the collectives each made."""
+    p, i = mesh.size("model"), mesh.index("model")
+    op = overlap_operands(seed, device)
+    n, kb = op["w1"].shape[1] // p, op["x"].shape[1] // p
+    cols = slice(i * n, (i + 1) * n)
+    kw1, kw2 = dict(net1=7, net2=8, signed1=False, signed2=True), dict(net=7, signed=True)
+    mesh.reset_counts()
+    paired = tp_overlap.tp_paired_matmul_int8(
+        mesh, op["x"], op["w1"][:, cols].contiguous(), op["b1"][cols].contiguous(),
+        op["w2"][cols].contiguous(), op["b2"], **kw1)
+    paired_counts = dict(mesh.counts)
+    mesh.reset_counts()
+    ring = tp_overlap.tp_ring_matmul_int8(
+        mesh, op["x"][:, i * kb:(i + 1) * kb].contiguous(), op["w"][:, cols].contiguous(),
+        op["b"][cols].contiguous(), **kw2)
+    ring_counts = dict(mesh.counts)
+    h8 = tp_overlap.matmul_int8(op["x"], op["w1"], op["b1"], epilogue="requant8", net=7,
+                                out_signed=False)
+    want_p = tp_overlap.requant8(tp_overlap.matmul_int8(h8, op["w2"], op["b2"], epilogue="int32"),
+                                  8, True)
+    want_r = tp_overlap.requant8(tp_overlap.matmul_int8(op["x"], op["w"], op["b"],
+                                                         epilogue="int32"), 7, True)[:, cols]
+    if not (torch.equal(paired, want_p) and torch.equal(ring, want_r)):
+        raise AssertionError(f"tp_overlap on rank {i} of {p}: the paired ({torch.equal(paired, want_p)}) "
+                             f"or ring ({torch.equal(ring, want_r)}) matmul differs from its "
+                             f"one-process composition")
+    return dict(paired=paired_counts, ring=ring_counts)
+
+
+def wrap_check(mesh, device) -> list:
+    """An int32 all-reduce across INT32_MAX over the model axis, held to
+    wrap_i32 of the int64 sum; returns the result."""
+    from f8net_tpu_torch.ops.fxp import INT32_MAX, wrap_i32
+
+    p, i = mesh.size("model"), mesh.index("model")
+    rows = [[INT32_MAX, -INT32_MAX - 1, 5 + r, (1 << 30) + r, -(1 << 30) - r] for r in range(p)]
+    t = torch.tensor(rows[i], dtype=torch.int32, device=device)
+    got = mesh.all_reduce(t, "model").cpu()
+    want = wrap_i32(torch.tensor(rows, dtype=torch.int64).sum(0))
+    if not torch.equal(got, want):
+        raise AssertionError(f"int32 all-reduce over {p} ranks: {got.tolist()}, wrapped int64 sum "
+                             f"{want.tolist()}")
+    return got.tolist()
+
+
+def mp_phase(forwards, images, card: str, seed: int, device="cuda", world: int = MP_WORLD,
+             backend: str = "gloo", timed: bool = False) -> dict:
+    """The tp and pp phases (module docstring): `world` ranks that share
+    card 0 over gloo, or (backend "nccl") each on a card of its own.
+    Returns {"tp": launches, "pp": launches} by kernel, summed over ranks
+    and forwards."""
+    import multiprocessing
+    import socket
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    tp_meshes = [(1, world)] + ([(2, world // 2)] if world >= 4 else [])
+    pp_stages = [world]
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = os.path.join(tmp, "payload.pt")
+        paths = sorted(set(MP_TP_PATHS) | set(MP_PP_PATHS), key=list(LAUNCHES_PER_FORWARD).index)
+        torch.save(mp_payload(forwards, images, paths, timed), payload)
+        settings = dict(device=str(dev), backend=backend, out=tmp, payload=payload, seed=seed,
+                        threads=torch.get_num_threads(), tp_meshes=tp_meshes, pp_stages=pp_stages,
+                        tp_paths=MP_TP_PATHS, pp_paths=MP_PP_PATHS)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        single = {}
+        if timed:  # the single-card engine first, on card 0 alone
+            data = torch.load(payload, weights_only=False)
+            for path in MP_TIMED_PATHS:
+                eng = forwards[(path, None)][0]
+                for b, xb in data["paths"][path]["timed"].items():
+                    xb = xb.to(dev)
+                    wall = time_ms(lambda: eng(xb), reps=5, rounds=3)
+                    single[(path, b)] = (wall, device_ms(lambda: eng(xb), reps=3)[0])
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mp_rank, args=(r, world, port, settings)) for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(MP_TIMEOUT)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        if alive or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"tp/pp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        data = torch.load(payload, weights_only=False)
+    cards = [r["card"] for r in ranks]
+    if dev.type == "cuda" and cards != ([0] * world if backend == "gloo" else list(range(world))):
+        raise AssertionError(f"tp/pp: the ranks ran on cards {cards}")
+    how = ("sharing the card over gloo" if backend == "gloo"
+           else f"on cards {cards} over {backend}")
+    total = {"tp": {name: 0 for name in KERNELS}, "pp": {name: 0 for name in KERNELS}}
+    for kind in ("tp", "pp"):
+        for key in ranks[0][kind]:
+            for r, rk in enumerate(ranks):
+                if key not in rk[kind]:
+                    continue
+                out = rk[kind][key]
+                mesh_of, path, rung = key
+                label = f"{kind} {path} {RUNGS.get(rung, 'strict')} {mesh_of} rank {r}"
+                want = data["paths"][path]["logits"][rung]
+                if kind == "tp":
+                    d, m = mesh_of
+                    per = want.shape[0] // d
+                    want = want[(r // m) * per:(r // m + 1) * per]
+                if not torch.equal(out["logits"], want):
+                    raise AssertionError(f"{label}: logits differ from the single-card engine's "
+                                         f"(max {(out['logits'] - want).abs().max().item()})")
+                table = {name: out["table"].get(name, 0) for name in KERNELS}
+                if out["calls"] != table or (dev.type == "cuda" and out["launches"] != table):
+                    raise AssertionError(f"{label}: calls {out['calls']}, launches "
+                                         f"{out['launches']}, its routing's table {table}")
+                col = out["collectives"]
+                if kind == "tp" and (col.get("all_reduce", 0) != (out["rows"] if mesh_of[1] > 1 else 0)
+                                     or "all_gather" in col):
+                    raise AssertionError(f"{label}: collectives {col}, {out['rows']} row layers")
+                for name in KERNELS:
+                    total[kind][name] += out["launches"][name]
+            first = ranks[0][kind][key]
+            if kind == "tp":
+                log(f"tp {key[1]} {RUNGS.get(key[2], 'strict')} (data, model) = {key[0]}, "
+                    f"{world} ranks {how}: every rank's logits bitwise equal to the single-card "
+                    f"engine's; rank 0: {first['n_calls']} kernel calls equal to their plain "
+                    f"versions, launches {dict((k, v) for k, v in first['launches'].items() if v)} "
+                    f"as its routing's table; {first['collectives'].get('all_reduce', 0)} "
+                    f"all-reduces ({first['rows']} row layers, "
+                    f"{first['collectives'].get('all_reduce_bytes', 0)} bytes), no all-gather")
+            else:
+                wire = sum(rk["pp"][key]["wire"] for rk in ranks if key in rk["pp"])
+                dtypes = sorted({str(dt).split(".")[-1] for rk in ranks if key in rk["pp"]
+                                 for dt, _ in rk["pp"][key]["sent"]})
+                log(f"pp {key[1]} {RUNGS.get(key[2], 'strict')} {key[0]} stages, "
+                    f"{first['micro']} microbatches, {how}: logits bitwise equal to the single-card "
+                    f"engine's on every rank; every stage's kernel calls equal to their plain "
+                    f"versions and its launches its table; wire {wire} bytes per forward "
+                    f"(boundaries as {', '.join(dtypes)})")
+    for r, rk in enumerate(ranks):
+        ov = rk["overlap"]
+        if ov["paired"].get("all_reduce") != 1 or ov["ring"].get("send") != world - 1:
+            raise AssertionError(f"tp_overlap rank {r}: collectives {ov}")
+    log(f"tp_overlap on {world} ranks {how}: tp_paired_matmul_int8 (one all-reduce) and "
+        f"tp_ring_matmul_int8 ({world - 1} sends per rank) bitwise equal to their one-process "
+        f"composition on every rank")
+    log(f"{backend} int32 all-reduce across INT32_MAX over {world} ranks {how}: "
+        f"{ranks[0]['wrap']}, equal to wrap_i32 of the int64 sum: its int32 sum wraps")
+    for (kind, path, b), _ in sorted(ranks[0]["timed"].items()):
+        walls = [rk["timed"][(kind, path, b)][0] for rk in ranks]
+        dev_ms = [rk["timed"][(kind, path, b)][1] for rk in ranks]
+        ours = [rk["timed"][(kind, path, b)][2] for rk in ranks]
+        s_wall, s_dev = single[(path, b)]
+        how_t = f"TP (1, {world})" if kind == "tp" else f"PP {world} stages, {MP_TIMED_MICRO} microbatches"
+        log(f"mp timing {path} batch {b} {how_t}: wall {max(walls):.3f} ms per forward (slowest "
+            f"rank), device ms per rank {' '.join(f'{v:.3f}' for v in dev_ms)} (port kernels "
+            f"{' '.join(f'{v:.3f}' for v in ours)}); single card: wall {s_wall:.3f} ms, device "
+            f"{s_dev:.3f} ms ({card})")
+    log(f"tp and pp phases: {time.perf_counter() - t_start:.1f} s wall, {world} ranks {how} ({card})")
+    return total
+
+
+def mp_engines(seed: int, images, device) -> dict:
+    """The engines --mp-cards compares with: each path's synthetic bundle
+    (the engine phase's) in each rung, {(path, rung): (engine,)}."""
+    out = {}
+    for path in LAUNCHES_PER_FORWARD:
+        model, plan, params, _ = load_synthetic_model(seed, IMAGE_SIZE, 1000, device,
+                                                       images[:BATCH], model_name=path)
+        for rung in (None, *RUNGS):
+            out[(path, rung)] = (IntEngine(model, plan, params, device=device,
+                                           **({rung: True} if rung else {})),)
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2553,7 +2927,11 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-cards", type=int, default=0,
                     help="run the dp phase alone, its ranks one per card over NCCL on this many "
                          "cards (at least 2)")
+    ap.add_argument("--mp-cards", type=int, default=0,
+                    help="run the tp and pp phases alone, their ranks one per card over NCCL on "
+                         "this many cards (at least 2, even), with their timings")
     args = ap.parse_args(argv)
+    t_script = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2587,6 +2965,21 @@ def main(argv=None) -> int:
     images = torch.from_numpy(
         rng.rand(max(TIMED_BATCHES), IMAGE_SIZE, IMAGE_SIZE, 3).astype(np.float32)
     ).to(device)
+    if args.mp_cards:
+        n = args.mp_cards
+        if not 2 <= n <= torch.cuda.device_count() or n % 2:
+            print(f"chip_smoke: --mp-cards {n} with {torch.cuda.device_count()} card(s)",
+                  file=sys.stderr)
+            return 1
+        mp_phase(mp_engines(args.seed, images, device), images, card, args.seed, device,
+                 world=n, backend="nccl", timed=True)
+        log(f"chip_smoke --mp-cards {n}: {time.time() - t_script:.1f} s wall ({card})")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     strict = {path: check_path(path, args.seed, images, device) for path in LAUNCHES_PER_FORWARD}
     paths = {path: r[:3] for path, r in strict.items()}
     # every forward: (path, rung) -> (engine, launches, checked calls); rung
@@ -2643,6 +3036,7 @@ def main(argv=None) -> int:
         f"{train_launches}; all {len(train_calls)} kernel calls of chip_smoke's engine on the "
         f"trained checkpoint equal to their plain versions ({card})")
     dp_phase(args.seed, card, device)
+    mp_launches = mp_phase(forwards, images, card, args.seed, device)
     kernels = []
     for name, k in KERNELS.items():
         row = table[name]
@@ -2654,8 +3048,10 @@ def main(argv=None) -> int:
             bound_ms=row["bound_ms"],
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
             library_ms=row["library_ms"], **extra_keys, serve_launches=serve_counts[name],
+            tp_launches=mp_launches["tp"][name], pp_launches=mp_launches["pp"][name],
             by_path=row["by_path"],
         ))
+    log(f"chip_smoke: {time.time() - t_script:.1f} s wall ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

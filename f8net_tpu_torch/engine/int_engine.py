@@ -217,13 +217,16 @@ class IntEngine:
         # layer's (K-major 16-byte chunks), every K1 layer's and the
         # classifier's (columns k-contiguous) and, for ResNets, the stem's
         # (K3); K5's expand and project weights are packed in _fused
+        # only the layers `int_params` holds: a pipeline stage's engine
+        # (engine.pp_engine) gets its stage's layers alone
+        names = [name for name in self.graph.names() if name in self.params]
         self._packed = {
             name: _conv.pack_conv_weight(self.params[name]["w"])
-            for name in self.graph.names()
+            for name in names
             if isinstance(self.graph[name], ConvBNSpec) and name != "head"
             and not is_pointwise(self.graph[name]) and not self.graph[name].is_depthwise
         }
-        for name in self.graph.names():
+        for name in names:
             spec = self.graph[name]
             if not (isinstance(spec, ConvBNSpec) and is_pointwise(spec)) or name in self._in_k5:
                 continue
@@ -231,16 +234,45 @@ class IntEngine:
             w = w.reshape(-1, w.shape[-1])
             pack = _gemm_v2.pack_gemm_weight if self.on_k7(name) else _gemm.pack_k1_weight
             self._packed[name] = pack(w)
-        self._packed["classifier"] = _gemm.pack_k1_weight(self.params["classifier"]["w"])
+        if "classifier" in self.params:
+            self._packed["classifier"] = _gemm.pack_k1_weight(self.params["classifier"]["w"])
         if model.name.startswith("mobilenet"):
-            w = self.params["head"]["w"]
-            cpad = -w.shape[2] % 16
-            self._packed["head"] = _conv.pack_conv_weight(F.pad(w, (0, 0, 0, cpad)))
+            if "head" in self.params:
+                w = self.params["head"]["w"]
+                cpad = -w.shape[2] % 16
+                self._packed["head"] = _conv.pack_conv_weight(F.pad(w, (0, 0, 0, cpad)))
             self._fused = {
-                m.body[0]: self._ir_operands(m) for m in model.blocks if fuses_ir(self.graph, m)
+                m.body[0]: self._ir_operands(m) for m in model.blocks
+                if fuses_ir(self.graph, m) and m.body[0] in self.params
             }
-        else:
+        elif "head" in self.params:
             self._stem_w = _stem.pack_stem_weight(self.params["head"]["w"])
+
+    def launch_table(self) -> dict:
+        """Kernel launches one forward makes, by kernel function name, from
+        the graph's structure and the routing (on_k7, fuses_ir): the head
+        in K3 (ResNets) or K2, each K5 block once, every other conv by its
+        kind, the classifier in K1.  Only the layers this engine holds."""
+        out = {}
+
+        def add(kernel):
+            out[kernel] = out.get(kernel, 0) + 1
+
+        for name in self.graph.names():
+            spec = self.graph[name]
+            if name not in self.params or (name in self._in_k5 and name not in self._fused):
+                continue
+            if name in self._in_k5:
+                add("ir_block")
+            elif isinstance(spec, LinearSpec):
+                add("int8_gemm")
+            elif name == "head":
+                add("conv_int8" if self.model.name.startswith("mobilenet") else "stem_pool")
+            elif is_pointwise(spec):
+                add("int8_gemm_v2" if self.on_k7(name) else "int8_gemm")
+            else:
+                add("dw_int8" if spec.is_depthwise else "conv_int8")
+        return out
 
     def on_k7(self, name: str) -> bool:
         """Whether layer `name` runs in K7: a 1x1/s1 conv outside a K5 block
@@ -382,28 +414,26 @@ class IntEngine:
         K1 otherwise, as GEMMs over N*H*W rows, any other conv -> K2 (with
         its weights packed at construction)."""
         pl = self.plan[name]
+        if pack_output_for is None:
+            return self._emit(IAct(self._run(name, x8, w, relu, epilogue="int32"), pl.out_fl))
+        cons = self.plan[pack_output_for]
+        y = self._run(name, x8, w, relu, epilogue="requant8", net=pl.out_fl - cons.input_fl,
+                      out_signed=cons.input_symmetric)
+        return IAct(y, cons.input_fl, packed_for=pack_output_for)
+
+    def _run(self, name, x8, w, relu=False, **epi) -> torch.Tensor:
+        """The kernel call of layer `name` with the epilogue `epi` (ops.gemm's
+        keywords) and the layer's bias and pad value.  launch_table() restates
+        this routing: a change here changes it there."""
         spec = self.graph[name]
         b, pad = self._bias_pad(name)
-        if pack_output_for is None:
-            epi = dict(epilogue="int32")
-        else:
-            cons = self.plan[pack_output_for]
-            epi = dict(
-                epilogue="requant8", net=pl.out_fl - cons.input_fl,
-                out_signed=cons.input_symmetric,
-            )
         if is_pointwise(spec):
             n, h, wd, c = x8.shape
             k = self._gemm2 if self.on_k7(name) else self._gemm  # packed at construction
-            y = k(x8.reshape(-1, c), w, b, relu=relu, **epi)
-            y = y.reshape(n, h, wd, -1)
-        else:
-            kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad, relu=relu)
-            k = self._dwk if spec.is_depthwise else self._convk
-            y = k(x8, w, b, **kw, **epi)
-        if pack_output_for is None:
-            return self._emit(IAct(y, pl.out_fl))
-        return IAct(y, self.plan[pack_output_for].input_fl, packed_for=pack_output_for)
+            return k(x8.reshape(-1, c), w, b, relu=relu, **epi).reshape(n, h, wd, -1)
+        kw = dict(stride=spec.stride[0], padding=spec.padding[0], pad_value=pad, relu=relu)
+        k = self._dwk if spec.is_depthwise else self._convk
+        return k(x8, w, b, **kw, **epi)
 
     def _emit(self, a: IAct) -> IAct:
         """An int32 output with no unique consumer conv: kept (strict and
@@ -549,13 +579,18 @@ class IntEngine:
     def avgpool(self, a: IAct) -> IAct:
         """Global average pool (`int_engine.py:1383-1415`): the shift-sum
         with an int32 (wrapping) sum under quant_avgpool -- for a bf16 value
-        an f32 sum times 2^-shift, rounded to bf16 -- else the reference's
-        float mean (of the real value, or of the integers / 2^fl)
-        requantized to the classifier's grid."""
+        the exact sum rounded to f32, times 2^-shift, rounded to bf16 --
+        else the reference's float mean (of the real value, or of the
+        integers / 2^fl) requantized to the classifier's grid."""
         if self.cfg.quant_avgpool:
             shift = avgpool_shift_for(self.model.pool_kernel)
             if a.scaled:
-                s = a.x.to(torch.float32).sum((1, 2)) * float(2.0**-shift)
+                # the bf16 terms summed exactly (in float64: each is a multiple
+                # of 2^-fl below 2^(32 - fl), so the sums of 49 keep far fewer
+                # than 53 bits), then rounded once to float32 -- the same bits
+                # whatever order a device takes the terms in, and whatever the
+                # channel count (a tensor-parallel rank pools C/tp of them)
+                s = a.x.to(torch.float64).sum((1, 2)).to(torch.float32) * float(2.0**-shift)
                 return IAct(s.to(torch.bfloat16), a.fl + shift, scaled=True)
             return IAct(wrap_i32(a.x.sum((1, 2), dtype=torch.int64)), a.fl + shift)
         m = a.x.to(torch.float32).mean((1, 2))

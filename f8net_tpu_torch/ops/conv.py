@@ -223,23 +223,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def conv_int8(
-    x: torch.Tensor, w, bias: torch.Tensor, *, stride: int = 1,
-    padding: int = 0, pad_value: int = 0, epilogue: str = "int32", net: int = 0,
-    out_signed: bool = True, relu: bool = False,
-) -> torch.Tensor:
-    """K2 on the tensors' device: the CUDA kernel on a card, the plain
-    version on the CPU.  `w` is HWIO (packed here, on every call) or a
-    PackedConvWeight (packed once by the caller)."""
-    kw_ = dict(
-        stride=stride, padding=padding, pad_value=pad_value, epilogue=epilogue,
-        net=net, out_signed=out_signed, relu=relu,
-    )
-    if x.device.type == "cpu":
-        return conv_int8_plain(x, w, bias, **kw_)
+def conv_int8_check(
+    x: torch.Tensor, w, bias: torch.Tensor, *, stride: int = 1, padding: int = 0,
+    pad_value: int = 0, epilogue: str = "int32", net: int = 0, out_signed: bool = True,
+    relu: bool = False, sms: int = H100_SMS,
+):
+    """What conv_int8 checks before it launches the kernel -- dtypes,
+    shapes, the kernel's domain, its plan on a card of `sms` SMs, layout
+    and alignment -- on tensors of any device; raises ValueError where the
+    kernel does not take the call.  Returns (packed weight, plan)."""
     req = _build.require
-    req(x.device.type == "cuda", f"conv_int8: no kernel for device {x.device}")
-    req(w.device == x.device and bias.device == x.device, "conv_int8: mixed devices")
     req(x.dtype == torch.int8, "conv_int8: x must be int8")
     req(bias.dtype == torch.int32, "conv_int8: bias must be int32")
     if isinstance(w, torch.Tensor):
@@ -258,7 +251,7 @@ def conv_int8(
     req(-31 < net < 31, f"conv_int8: shift {net} out of range")
     oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
     req(oh > 0 and ow > 0, "conv_int8: empty output")
-    plan = plan_conv(n * oh * ow, kh * kw * c, o, _sm_count(x.device))
+    plan = plan_conv(n * oh * ow, kh * kw * c, o, sms)
     wdata = w.data
     req(
         wdata.dtype == torch.int8 and tuple(wdata.shape) == (plan.ksteps * BK // 16, plan.o_pad, 16),
@@ -268,6 +261,31 @@ def conv_int8(
     req(x.is_contiguous() and wdata.is_contiguous() and bias.is_contiguous(),
         "conv_int8: contiguity")
     req(x.data_ptr() % 16 == 0 and wdata.data_ptr() % 16 == 0, "conv_int8: alignment")
+    return w, plan
+
+
+def conv_int8(
+    x: torch.Tensor, w, bias: torch.Tensor, *, stride: int = 1,
+    padding: int = 0, pad_value: int = 0, epilogue: str = "int32", net: int = 0,
+    out_signed: bool = True, relu: bool = False,
+) -> torch.Tensor:
+    """K2 on the tensors' device: the CUDA kernel on a card, the plain
+    version on the CPU.  `w` is HWIO (packed here, on every call) or a
+    PackedConvWeight (packed once by the caller)."""
+    kw_ = dict(
+        stride=stride, padding=padding, pad_value=pad_value, epilogue=epilogue,
+        net=net, out_signed=out_signed, relu=relu,
+    )
+    if x.device.type == "cpu":
+        return conv_int8_plain(x, w, bias, **kw_)
+    req = _build.require
+    req(x.device.type == "cuda", f"conv_int8: no kernel for device {x.device}")
+    req(w.device == x.device and bias.device == x.device, "conv_int8: mixed devices")
+    w, plan = conv_int8_check(x, w, bias, **kw_, sms=_sm_count(x.device))
+    wdata = w.data
+    n, h, wd, c = x.shape
+    kh, kw, o = w.kh, w.kw, w.o
+    oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
     out = torch.empty(
         (n, oh, ow, o), dtype=torch.int32 if epilogue == "int32" else torch.int8,
         device=x.device,

@@ -258,6 +258,41 @@ def plan_fits(plan: DwPlan, n, h, w, c, k, stride, padding) -> bool:
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 
 
+def dw_int8_check(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, stride: int = 1,
+    padding: int = 0, pad_value: int = 0, epilogue: str = "int32", net: int = 0,
+    out_signed: bool = True, relu: bool = False, plan: Optional[DwPlan] = None,
+    sms: int = H100_SMS,
+) -> DwPlan:
+    """What dw_int8 checks before it launches the kernel -- dtypes, shapes,
+    the kernel's domain, the plan (plan_dw's on a card of `sms` SMs where
+    none is given), layout and alignment -- on tensors of any device;
+    raises ValueError where the kernel does not take the call.  Returns
+    the plan."""
+    req = _build.require
+    req(x.dtype == torch.int8 and w.dtype == torch.int8, "dw_int8: x and w must be int8")
+    req(bias.dtype == torch.int32, "dw_int8: bias must be int32")
+    req(x.ndim == 4 and w.ndim == 4, "dw_int8: x must be NHWC, w (kh, kw, 1, C)")
+    n, h, wd, c = x.shape
+    kh, kw, wi, o = w.shape
+    req(wi == 1 and o == c and bias.shape == (c,), "dw_int8: w (kh, kw, 1, C), bias (C,)")
+    req(c % 16 == 0, f"dw_int8: needs C % 16 == 0, got {c}")
+    req(kh == kw and kh % 2 == 1 and kh <= 9, f"dw_int8: needs a square odd k <= 9, got {kh}x{kw}")
+    req(stride in (1, 2) and padding >= 0, f"dw_int8: stride {stride}, padding {padding}")
+    req(-128 <= pad_value <= 127, "dw_int8: pad_value is an int8")
+    req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "dw_int8: contiguity")
+    req(x.data_ptr() % 16 == 0 and w.data_ptr() % 4 == 0, "dw_int8: alignment")
+    req(epilogue in EPILOGUES, f"dw_int8: unknown epilogue {epilogue!r}")
+    req(-31 < net < 31, f"dw_int8: shift {net} out of range")
+    oh, ow = dw_out_hw(h, wd, kh, stride, padding)
+    req(oh > 0 and ow > 0, "dw_int8: empty output")
+    if plan is None:
+        plan = plan_dw(n, h, wd, c, kh, stride, padding, sms)
+    req(plan_fits(plan, n, h, wd, c, kh, stride, padding),
+        f"dw_int8: the plan does not fit the call: {plan}")
+    return plan
+
+
 def dw_int8(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, stride: int = 1,
     padding: int = 0, pad_value: int = 0, epilogue: str = "int32", net: int = 0,
@@ -277,26 +312,10 @@ def dw_int8(
     req = _build.require
     req(x.device.type == "cuda", f"dw_int8: no kernel for device {x.device}")
     req(w.device == x.device and bias.device == x.device, "dw_int8: mixed devices")
-    req(x.dtype == torch.int8 and w.dtype == torch.int8, "dw_int8: x and w must be int8")
-    req(bias.dtype == torch.int32, "dw_int8: bias must be int32")
-    req(x.ndim == 4 and w.ndim == 4, "dw_int8: x must be NHWC, w (kh, kw, 1, C)")
+    plan = dw_int8_check(x, w, bias, **kw_, plan=plan, sms=_sm_count(x.device))
     n, h, wd, c = x.shape
-    kh, kw, wi, o = w.shape
-    req(wi == 1 and o == c and bias.shape == (c,), "dw_int8: w (kh, kw, 1, C), bias (C,)")
-    req(c % 16 == 0, f"dw_int8: needs C % 16 == 0, got {c}")
-    req(kh == kw and kh % 2 == 1 and kh <= 9, f"dw_int8: needs a square odd k <= 9, got {kh}x{kw}")
-    req(stride in (1, 2) and padding >= 0, f"dw_int8: stride {stride}, padding {padding}")
-    req(-128 <= pad_value <= 127, "dw_int8: pad_value is an int8")
-    req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "dw_int8: contiguity")
-    req(x.data_ptr() % 16 == 0 and w.data_ptr() % 4 == 0, "dw_int8: alignment")
-    req(epilogue in EPILOGUES, f"dw_int8: unknown epilogue {epilogue!r}")
-    req(-31 < net < 31, f"dw_int8: shift {net} out of range")
+    kh = w.shape[0]
     oh, ow = dw_out_hw(h, wd, kh, stride, padding)
-    req(oh > 0 and ow > 0, "dw_int8: empty output")
-    if plan is None:
-        plan = plan_dw(n, h, wd, c, kh, stride, padding, _sm_count(x.device))
-    req(plan_fits(plan, n, h, wd, c, kh, stride, padding),
-        f"dw_int8: the plan does not fit the call: {plan}")
     out = torch.empty(
         (n, oh, ow, c), dtype=torch.int32 if epilogue == "int32" else torch.int8,
         device=x.device,

@@ -300,24 +300,17 @@ def plan_fits(plan: K1Plan, m: int, k: int, n: int) -> bool:
     return plan == general_plan(m, k, n)
 
 
-def int8_gemm(
-    x: torch.Tensor, w, bias: torch.Tensor, *,
-    epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
-    plan: Optional[K1Plan] = None,
-) -> torch.Tensor:
-    """K1 on the tensors' device: the CUDA kernel on a card, the plain
-    version on the CPU.  `w` is (K, N) (packed here, on every call) or a
-    PackedK1Weight (packed once by the caller).  `plan` overrides
-    plan_k1's (to measure or test another one)."""
-    epi = dict(epilogue=epilogue, net=net, out_signed=out_signed, relu=relu)
-    if x.device.type == "cpu":
-        if plan is not None:
-            wp = w if isinstance(w, PackedK1Weight) else pack_k1_weight(w)
-            return int8_gemm_tiled_plain(x, wp, bias, plan, **epi)
-        return int8_gemm_plain(x, w, bias, **epi)
+def int8_gemm_check(
+    x: torch.Tensor, w, bias: torch.Tensor, *, epilogue: str = "int32", net: int = 0,
+    out_signed: bool = True, relu: bool = False, plan: Optional[K1Plan] = None,
+    sms: int = H100_SMS,
+):
+    """What int8_gemm checks before it launches the kernel -- dtypes,
+    shapes, the kernel's domain, the plan (plan_k1's on a card of `sms` SMs
+    where none is given), layout and alignment -- on tensors of any device;
+    raises ValueError where the kernel does not take the call.  Returns
+    (packed weight, plan, x's load width in bytes)."""
     req = _build.require
-    req(x.device.type == "cuda", f"int8_gemm: no kernel for device {x.device}")
-    req(w.device == x.device and bias.device == x.device, "int8_gemm: mixed devices")
     req(x.dtype == torch.int8, "int8_gemm: x and w must be int8")
     if isinstance(w, torch.Tensor):
         req(w.dtype == torch.int8, "int8_gemm: x and w must be int8")
@@ -339,13 +332,38 @@ def int8_gemm(
     req(x.is_contiguous() and wdata.is_contiguous() and bias.is_contiguous(),
         "int8_gemm: contiguity")
     if plan is None:
-        plan = plan_k1(M, K, N, _sm_count(x.device), 4 if epilogue == "int32" else 1)
+        plan = plan_k1(M, K, N, sms, 4 if epilogue == "int32" else 1)
     req(plan_fits(plan, M, K, N), f"int8_gemm: the plan does not fit the call: {plan}")
     # x rows load in 16-byte pieces (4-byte ones in the general form at K % 16 != 0)
     vec_a = 16 if K % 16 == 0 or plan.form == "narrow" else 4
     req(x.data_ptr() % vec_a == 0 and wdata.data_ptr() % 16 == 0, "int8_gemm: alignment")
     req(epilogue in EPILOGUES, f"int8_gemm: unknown epilogue {epilogue!r}")
     req(-31 < net < 31, f"int8_gemm: shift {net} out of range")
+    return w, plan, vec_a
+
+
+def int8_gemm(
+    x: torch.Tensor, w, bias: torch.Tensor, *,
+    epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
+    plan: Optional[K1Plan] = None,
+) -> torch.Tensor:
+    """K1 on the tensors' device: the CUDA kernel on a card, the plain
+    version on the CPU.  `w` is (K, N) (packed here, on every call) or a
+    PackedK1Weight (packed once by the caller).  `plan` overrides
+    plan_k1's (to measure or test another one)."""
+    epi = dict(epilogue=epilogue, net=net, out_signed=out_signed, relu=relu)
+    if x.device.type == "cpu":
+        if plan is not None:
+            wp = w if isinstance(w, PackedK1Weight) else pack_k1_weight(w)
+            return int8_gemm_tiled_plain(x, wp, bias, plan, **epi)
+        return int8_gemm_plain(x, w, bias, **epi)
+    req = _build.require
+    req(x.device.type == "cuda", f"int8_gemm: no kernel for device {x.device}")
+    req(w.device == x.device and bias.device == x.device, "int8_gemm: mixed devices")
+    w, plan, vec_a = int8_gemm_check(x, w, bias, **epi, plan=plan, sms=_sm_count(x.device))
+    wdata = w.data
+    M, K = x.shape
+    N = w.n
     out = torch.empty(
         (M, N), dtype=torch.int32 if epilogue == "int32" else torch.int8, device=x.device
     )

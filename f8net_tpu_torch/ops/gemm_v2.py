@@ -160,24 +160,17 @@ def int8_gemm_v2_split_plain(
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
-def int8_gemm_v2(
-    x: torch.Tensor, w, bias: torch.Tensor, *,
-    epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
-    plan: Optional[GemmPlan] = None,
-) -> torch.Tensor:
-    """K7 on the tensors' device: the CUDA kernel on a card, the plain
-    version on the CPU.  `w` is (K, N) (packed here, on every call) or a
-    PackedConvWeight of a 1x1 conv (packed once by the caller).  `plan`
-    overrides plan_gemm's (to measure or test another one)."""
-    epi = dict(epilogue=epilogue, net=net, out_signed=out_signed, relu=relu)
-    if x.device.type == "cpu":
-        if plan is not None:
-            wp = w if isinstance(w, PackedConvWeight) else pack_gemm_weight(w)
-            return int8_gemm_v2_split_plain(x, wp, bias, plan, **epi)
-        return int8_gemm_v2_plain(x, w, bias, **epi)
+def int8_gemm_v2_check(
+    x: torch.Tensor, w, bias: torch.Tensor, *, epilogue: str = "int32", net: int = 0,
+    out_signed: bool = True, relu: bool = False, plan: Optional[GemmPlan] = None,
+    sms: int = H100_SMS,
+):
+    """What int8_gemm_v2 checks before it launches the kernel -- dtypes,
+    shapes, the kernel's domain, the plan (plan_gemm's on a card of `sms`
+    SMs where none is given), layout and alignment -- on tensors of any
+    device; raises ValueError where the kernel does not take the call.
+    Returns (packed weight, plan)."""
     req = _build.require
-    req(x.device.type == "cuda", f"int8_gemm_v2: no kernel for device {x.device}")
-    req(w.device == x.device and bias.device == x.device, "int8_gemm_v2: mixed devices")
     req(x.dtype == torch.int8, "int8_gemm_v2: x must be int8")
     req(bias.dtype == torch.int32, "int8_gemm_v2: bias must be int32")
     if isinstance(w, torch.Tensor):
@@ -196,7 +189,7 @@ def int8_gemm_v2(
     req(epilogue in EPILOGUES, f"int8_gemm_v2: unknown epilogue {epilogue!r}")
     req(-31 < net < 31, f"int8_gemm_v2: shift {net} out of range")
     if plan is None:
-        plan = plan_gemm(M, K, N, _sm_count(x.device))
+        plan = plan_gemm(M, K, N, sms)
     tiles = -(-M // BM) * (plan.n_pad // max(plan.bn, 1))
     req(plan.bn in (64, 128) and plan.n_pad == _round_up(N, 64) and plan.n_pad % plan.bn == 0
         and plan.ksteps == -(-K // BK) and 1 <= plan.splits <= MAX_SPLITS
@@ -213,6 +206,31 @@ def int8_gemm_v2(
         "int8_gemm_v2: contiguity")
     req(x.data_ptr() % 16 == 0 and wdata.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0,
         "int8_gemm_v2: alignment")
+    return w, plan
+
+
+def int8_gemm_v2(
+    x: torch.Tensor, w, bias: torch.Tensor, *,
+    epilogue: str = "int32", net: int = 0, out_signed: bool = True, relu: bool = False,
+    plan: Optional[GemmPlan] = None,
+) -> torch.Tensor:
+    """K7 on the tensors' device: the CUDA kernel on a card, the plain
+    version on the CPU.  `w` is (K, N) (packed here, on every call) or a
+    PackedConvWeight of a 1x1 conv (packed once by the caller).  `plan`
+    overrides plan_gemm's (to measure or test another one)."""
+    epi = dict(epilogue=epilogue, net=net, out_signed=out_signed, relu=relu)
+    if x.device.type == "cpu":
+        if plan is not None:
+            wp = w if isinstance(w, PackedConvWeight) else pack_gemm_weight(w)
+            return int8_gemm_v2_split_plain(x, wp, bias, plan, **epi)
+        return int8_gemm_v2_plain(x, w, bias, **epi)
+    req = _build.require
+    req(x.device.type == "cuda", f"int8_gemm_v2: no kernel for device {x.device}")
+    req(w.device == x.device and bias.device == x.device, "int8_gemm_v2: mixed devices")
+    w, plan = int8_gemm_v2_check(x, w, bias, **epi, plan=plan, sms=_sm_count(x.device))
+    wdata = w.data
+    M, K = x.shape
+    N = w.o
     out = torch.empty(
         (M, N), dtype=torch.int32 if epilogue == "int32" else torch.int8, device=x.device
     )

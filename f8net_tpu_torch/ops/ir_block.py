@@ -368,6 +368,62 @@ def _packed_1x1(w, rows: int, cols: int, what: str):
     return w
 
 
+def fused_ir_block_check(
+    x: torch.Tensor, w1, b1: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+    w2, b2: torch.Tensor, carry: Optional[torch.Tensor] = None, *,
+    net1: int = 0, dw_in_signed: bool = False, net2: int = 0, proj_in_signed: bool = False,
+    out: str = "int32", net_out: int = 0, out_signed: bool = False, shift_res: int = 0,
+    shift_carry: int = 0, out_fl: int = 0, carry_add_offset: int = 0,
+    plan: Optional[IrPlan] = None, sms: int = H100_SMS,
+):
+    """What fused_ir_block checks before it launches the kernel -- dtypes,
+    shapes, the kernel's domain, the plan (plan_ir's on a card of `sms` SMs
+    where none is given), layout and alignment -- on tensors of any device;
+    raises ValueError where the kernel does not take the call.  Returns
+    (packed w1, packed w2, plan)."""
+    req = _build.require
+    ins = (x, w1, b1, wd, bd, w2, b2) + ((carry,) if carry is not None else ())
+    req(x.dtype == torch.int8 and wd.dtype == torch.int8, "fused_ir_block: x, wd: int8")
+    req(all(t.dtype == torch.int32 for t in (b1, bd, b2)), "fused_ir_block: b1, bd, b2: int32")
+    req(carry is None or carry.dtype in (torch.int32, torch.int8),
+        "fused_ir_block: carry: int32 or int8 (packed, 1 byte)")
+    req(carry_add_offset in CARRY_OFFSETS and (carry is not None or carry_add_offset == 0),
+        f"fused_ir_block: carry_add_offset {carry_add_offset} (0, or 128 with a carry)")
+    req(x.ndim == 4 and wd.ndim == 3, "fused_ir_block: ranks")
+    n, h, w, cin = x.shape
+    kh, kw, ce = wd.shape
+    cout = b2.shape[0] if b2.ndim == 1 else -1
+    w1 = _packed_1x1(w1, cin, ce, "w1")
+    w2 = _packed_1x1(w2, ce, cout, "w2")
+    req(b1.shape == (ce,) and bd.shape == (ce,), "fused_ir_block: bias shapes")
+    req(carry is None or tuple(carry.shape) == (n, h, w, cout), "fused_ir_block: carry shape")
+    req(kh == kw and kh % 2 == 1, f"fused_ir_block: needs a square odd kernel, got {kh}x{kw}")
+    req(
+        cin % 4 == 0 and ce % 4 == 0 and cout % 4 == 0,
+        f"fused_ir_block: needs channels % 4 == 0, got {cin}, {ce}, {cout}",
+    )
+    req(out in OUTPUTS, f"fused_ir_block: unknown output {out!r}")
+    cb, ob = call_bytes(carry, out)
+    if plan is None:
+        plan = plan_ir(n, h, w, cin, ce, cout, kh, sms, cb, ob)
+    else:
+        req(plan == _layout(h, w, cin, ce, cout, kh, plan.th, plan.splits, plan.cs, cb)
+            and 0 < plan.splits <= MAX_SPLITS and plan.cs % 32 == 0
+            and plan.splits == -(-_round_up(ce, 32) // plan.cs) and plan.total <= SMEM_LIMIT,
+            "fused_ir_block: the plan does not fit the call")
+    tensors = (x, w1.data, b1, wd, bd, w2.data, b2) + ins[7:]
+    req(all(t.is_contiguous() for t in tensors), "fused_ir_block: contiguity")
+    req(
+        x.data_ptr() % plan.xvec == 0 and all(t.data_ptr() % 4 == 0 for t in tensors)
+        and all(t.data_ptr() % 16 == 0 for t in (w1.data, w2.data) + ins[7:]),
+        "fused_ir_block: alignment",
+    )
+    req(all(-31 < s < 31 for s in (net1, net2, net_out)), "fused_ir_block: shift out of range")
+    req(0 <= shift_res < 32 and 0 <= shift_carry < 32, "fused_ir_block: carry shift out of range")
+    req(0 <= out_fl < 100, f"fused_ir_block: out_fl {out_fl} out of range")
+    return w1, w2, plan
+
+
 def fused_ir_block(
     x: torch.Tensor, w1, b1: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
     w2, b2: torch.Tensor, carry: Optional[torch.Tensor] = None, *,
@@ -396,44 +452,11 @@ def fused_ir_block(
     ins = (x, w1, b1, wd, bd, w2, b2) + ((carry,) if carry is not None else ())
     req(x.device.type == "cuda", f"fused_ir_block: no kernel for device {x.device}")
     req(all(t.device == x.device for t in ins), "fused_ir_block: mixed devices")
-    req(x.dtype == torch.int8 and wd.dtype == torch.int8, "fused_ir_block: x, wd: int8")
-    req(all(t.dtype == torch.int32 for t in (b1, bd, b2)), "fused_ir_block: b1, bd, b2: int32")
-    req(carry is None or carry.dtype in (torch.int32, torch.int8),
-        "fused_ir_block: carry: int32 or int8 (packed, 1 byte)")
-    req(carry_add_offset in CARRY_OFFSETS and (carry is not None or carry_add_offset == 0),
-        f"fused_ir_block: carry_add_offset {carry_add_offset} (0, or 128 with a carry)")
-    req(x.ndim == 4 and wd.ndim == 3, "fused_ir_block: ranks")
+    w1, w2, plan = fused_ir_block_check(x, w1, b1, wd, bd, w2, b2, carry, **kw_, plan=plan,
+                                        sms=_sm_count(x.device))
     n, h, w, cin = x.shape
     kh, kw, ce = wd.shape
-    cout = b2.shape[0] if b2.ndim == 1 else -1
-    w1 = _packed_1x1(w1, cin, ce, "w1")
-    w2 = _packed_1x1(w2, ce, cout, "w2")
-    req(b1.shape == (ce,) and bd.shape == (ce,), "fused_ir_block: bias shapes")
-    req(carry is None or tuple(carry.shape) == (n, h, w, cout), "fused_ir_block: carry shape")
-    req(kh == kw and kh % 2 == 1, f"fused_ir_block: needs a square odd kernel, got {kh}x{kw}")
-    req(
-        cin % 4 == 0 and ce % 4 == 0 and cout % 4 == 0,
-        f"fused_ir_block: needs channels % 4 == 0, got {cin}, {ce}, {cout}",
-    )
-    req(out in OUTPUTS, f"fused_ir_block: unknown output {out!r}")
-    cb, ob = call_bytes(carry, out)
-    if plan is None:
-        plan = plan_ir(n, h, w, cin, ce, cout, kh, _sm_count(x.device), cb, ob)
-    else:
-        req(plan == _layout(h, w, cin, ce, cout, kh, plan.th, plan.splits, plan.cs, cb)
-            and 0 < plan.splits <= MAX_SPLITS and plan.cs % 32 == 0
-            and plan.splits == -(-_round_up(ce, 32) // plan.cs) and plan.total <= SMEM_LIMIT,
-            "fused_ir_block: the plan does not fit the call")
-    tensors = (x, w1.data, b1, wd, bd, w2.data, b2) + ins[7:]
-    req(all(t.is_contiguous() for t in tensors), "fused_ir_block: contiguity")
-    req(
-        x.data_ptr() % plan.xvec == 0 and all(t.data_ptr() % 4 == 0 for t in tensors)
-        and all(t.data_ptr() % 16 == 0 for t in (w1.data, w2.data) + ins[7:]),
-        "fused_ir_block: alignment",
-    )
-    req(all(-31 < s < 31 for s in (net1, net2, net_out)), "fused_ir_block: shift out of range")
-    req(0 <= shift_res < 32 and 0 <= shift_carry < 32, "fused_ir_block: carry shift out of range")
-    req(0 <= out_fl < 100, f"fused_ir_block: out_fl {out_fl} out of range")
+    cout = b2.shape[0]
     y = torch.empty((n, h, w, cout), dtype=OUTPUTS[out], device=x.device)
     params = _param_array(
         plan, (n, h, w, cin, ce, cout, kh),

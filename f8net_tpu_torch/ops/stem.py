@@ -91,6 +91,27 @@ def stem_pool_plain(
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
+def stem_pool_check(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, pad_value: int = 0
+) -> torch.Tensor:
+    """What stem_pool checks before it launches the kernel -- dtypes,
+    shapes, layout and alignment -- on tensors of any device; raises
+    ValueError where the kernel does not take the call.  Returns the packed
+    weights."""
+    req = _build.require
+    req(x.dtype == torch.int8 and w.dtype == torch.int8, "stem_pool: x and w must be int8")
+    req(bias.dtype == torch.int32 and bias.shape == (64,), "stem_pool: bias (64,) int32")
+    req(x.ndim == 4 and x.shape[3] == 3, "stem_pool: x must be (n, h, w, 3)")
+    req(tuple(w.shape) in ((7, 7, 3, 64), (64, STEM_K)),
+        f"stem_pool: w must be (7, 7, 3, 64) HWIO or (64, {STEM_K}) packed")
+    if w.ndim == 4:
+        w = pack_stem_weight(w)
+    req(-128 <= pad_value <= 127, "stem_pool: pad_value is an int8")
+    req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "stem_pool: contiguity")
+    req(w.data_ptr() % 16 == 0, "stem_pool: alignment")
+    return w
+
+
 def stem_pool(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, pad_value: int = 0
 ) -> torch.Tensor:
@@ -103,16 +124,7 @@ def stem_pool(
     req = _build.require
     req(x.device.type == "cuda", f"stem_pool: no kernel for device {x.device}")
     req(w.device == x.device and bias.device == x.device, "stem_pool: mixed devices")
-    req(x.dtype == torch.int8 and w.dtype == torch.int8, "stem_pool: x and w must be int8")
-    req(bias.dtype == torch.int32 and bias.shape == (64,), "stem_pool: bias (64,) int32")
-    req(x.ndim == 4 and x.shape[3] == 3, "stem_pool: x must be (n, h, w, 3)")
-    req(tuple(w.shape) in ((7, 7, 3, 64), (64, STEM_K)),
-        f"stem_pool: w must be (7, 7, 3, 64) HWIO or (64, {STEM_K}) packed")
-    if w.ndim == 4:
-        w = pack_stem_weight(w)
-    req(-128 <= pad_value <= 127, "stem_pool: pad_value is an int8")
-    req(x.is_contiguous() and w.is_contiguous() and bias.is_contiguous(), "stem_pool: contiguity")
-    req(w.data_ptr() % 16 == 0, "stem_pool: alignment")
+    w = stem_pool_check(x, w, bias, pad_value=pad_value)
     n, h, wd, _ = x.shape
     oh, ow, ph, pw = stem_out_hw(h, wd)
     out = torch.empty((n, ph, pw, 64), dtype=torch.int32, device=x.device)

@@ -1,4 +1,5 @@
-"""Data-parallel training across processes (torch.distributed)."""
+"""Multi-process runtime on torch.distributed: data-parallel training
+(dist), the rank mesh (mesh) and tensor-parallel matmuls (tp_overlap)."""
 
 from .dist import (
     AllReduceSum,
@@ -16,3 +17,4 @@ from .dist import (
     master_only_print,
     shard_batch,
 )
+from .mesh import Mesh, make_mesh, replicate

@@ -24,7 +24,8 @@ not, negative shifts, ReLU, and biases that make the int32 epilogue and the
 K5 carry add wrap; K5's boundary-rung forms (1-byte carry with offsets 0
 and 128, bf16 output) under every plan its planner weighs at MobileNetV2's
 shapes, at couts whose 1-byte carry rows are 4- and 8-byte aligned, at
-2^24 + 2^16 + 1 (rounded twice to bf16), and the forms its wrapper refuses;
+2^24 + 2^16 + 1 (rounded twice to bf16), the forms its wrapper refuses,
+and every Ce slice of a tensor-parallel rank at tp = 2 and 4;
 K1 in each of its forms (skinny at M = 1-64 under every column group and
 split of the reduction its planner weighs, narrow at K = 24, 32 and 96 with
 persistent grids of 1 block to 4 per SM, general at K % 16 != 0 and N % 4
@@ -421,6 +422,56 @@ def test_fused_ir_block_kernel_vs_plain(dev, n, h, w, cin, ce, cout, k, carry, w
         torch.cuda.synchronize()
         want = fused_ir_block_plain(*args, **kw)
         assert torch.equal(got.cpu(), want), kw
+
+
+# MobileNetV2's blocks that run whole in K5, each rank's Ce slice under
+# tensor parallelism at tp = 2 and 4 (engine/tp_engine.py): int32 out, no
+# carry, the rank's share of the project's bias (h, w, cin, ce/tp, cout)
+TP_IR_SHARDS = [
+    (h, w, cin, ce // tp, cout)
+    for h, w, cin, ce, cout in [(56, 56, 24, 144, 24), (28, 28, 32, 192, 32), (14, 14, 64, 384, 64),
+                                (14, 14, 64, 384, 96), (14, 14, 96, 576, 96),
+                                (7, 7, 160, 960, 160), (7, 7, 160, 960, 320)]
+    for tp in (2, 4)
+]
+
+
+@pytest.mark.parametrize("h,w,cin,ce,cout", TP_IR_SHARDS)
+def test_fused_ir_block_at_tensor_parallel_shards(dev, h, w, cin, ce, cout):
+    """K5 at every Ce/tp a tensor-parallel rank gives it (72, 36, 96, 48,
+    192, 96, 288, 144, 480, 240), batch 8, in the form the TP engine calls:
+    the int32 partial with no carry, against its plain version."""
+    rng = np.random.RandomState(h + cin + ce + cout)
+    x = _int8(rng, (8, h, w, cin))
+    w1, wd, w2 = _int8(rng, (cin, ce), -40, 41), _int8(rng, (3, 3, ce), -127), _int8(rng, (ce, cout), -40, 41)
+    b1, bd, b2 = _bias(rng, ce, False), _bias(rng, ce, False), _bias(rng, cout, True)
+    args = (x, w1, b1, wd, bd, w2, b2)
+    kw = dict(net1=8, dw_in_signed=False, net2=13, proj_in_signed=False, out="int32")
+    got = fused_ir_block(*(a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fused_ir_block_plain(*args, **kw))
+
+
+def test_kernel_checks_are_the_wrappers(dev):
+    """A call a kernel refuses raises the same error from its wrapper on the
+    card and from its check function (ops.*_check, which
+    tests/test_torch_tp.py runs on every tensor-parallel shard shape)."""
+    x = torch.zeros((2, 8, 8, 8), dtype=torch.int8, device=dev)  # C = 8: K4 takes C % 16 == 0
+    w = torch.zeros((3, 3, 1, 8), dtype=torch.int8, device=dev)
+    b = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="needs C % 16 == 0, got 8"):
+        dw_int8(x, w, b, padding=1)
+    with pytest.raises(ValueError, match="needs C % 16 == 0, got 8"):
+        dw_ops.dw_int8_check(x, w, b, padding=1)
+    xg = torch.zeros((4, 24), dtype=torch.int8, device=dev)  # K7 takes K % 16 == 0
+    wg = torch.zeros((24, 64), dtype=torch.int8, device=dev)
+    bg = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="needs K % 16 == 0, got 24"):
+        int8_gemm_v2(xg, wg, bg)
+    from f8net_tpu_torch.ops.gemm_v2 import int8_gemm_v2_check
+
+    with pytest.raises(ValueError, match="needs K % 16 == 0, got 24"):
+        int8_gemm_v2_check(xg, wg, bg)
 
 
 # (n, h, w, cin, ce, cout, k, th, splits): bands with halos, Ce split
