@@ -150,10 +150,13 @@ and the multi-card inference engines (tensor- and pipeline-parallel):
            NCCL wrap check, and wall and device ms per forward (strict) of
            MP_TIMED_PATHS at batch 8 and 64 under TP (1, N) and PP (N stages,
            MP_TIMED_MICRO microbatches) beside the single-card engine's
-  flat     K6, which no engine calls, on the paths' own activations: each of
-           ResNet-50's stride-1 3x3 convs, and ResNet-18's stride-1
-           BasicBlocks as two-conv chains on the flat raster (ring masked),
-           against its plain version on every row and against K2
+  flat     K6, which no engine calls, on the paths' own activations and the
+           weights the engine packed for K2: each of ResNet-50's stride-1
+           3x3 convs, and ResNet-18's stride-1 BasicBlocks as two-conv
+           chains on the flat raster (ring masked); launches counted (set
+           to 0 just before the 23 calls, read just after: one K6 launch
+           per call, no other kernel); each call against its plain version
+           on every row and, unpacked, against K2
   timing   device time (torch.profiler) of each kernel call, of its plain
            version and of one PyTorch call computing the same function where
            there is one (K1 and K7: torch._int_mm; K2, K4 and K6: F.conv2d in
@@ -166,7 +169,9 @@ and the multi-card inference engines (tensor- and pipeline-parallel):
            tile (ops/dw.py:plan_dw) beside its bytes bound and its dp4a
            issue floor (at an assumed rate), K5 per call with its band height and Ce split
            (ops/ir_block.py:plan_ir), K7 per shape with its tile, split and
-           grid (ops/gemm_v2.py:plan_gemm) beside K1 and torch._int_mm; per
+           grid (ops/gemm_v2.py:plan_gemm) beside K1 and torch._int_mm, K6
+           per call with its tile and split
+           (ops/conv_flat.py:plan_flat) beside K2 and F.conv2d; per
            path and rung, whole-forward images/s,
            device-busy share, glue ms and device-time breakdown at batch 8
            and 64, beside the bf16 baseline's images/s (engine.baseline,
@@ -174,11 +179,13 @@ and the multi-card inference engines (tensor- and pipeline-parallel):
            ratio to it
 
 The engine hands K1, K2, K3, K5 and K7 the weights it packed at
-construction (PackedK1Weight, PackedConvWeight, pack_stem_weight); the
-plain versions compute from the same packed layouts.
+construction (PackedK1Weight, PackedConvWeight, pack_stem_weight), and the
+flat phase hands K2's to K6; the plain versions compute from the same
+packed layouts.
 
 The serve, export and train phases' numbers are logged on lines before the
-kernel table, which adds each kernel's launches while serving
+kernel table.  A kernel's `launches` there are those of the twelve forwards
+(K6's: of the flat phase); the table adds each kernel's launches while serving
 (`serve_launches`) and on the tp and pp phases' forwards, summed over the
 ranks (`tp_launches`, `pp_launches`).
 
@@ -705,7 +712,7 @@ def work(name, args, kw, out):
             n, h2, w2 = kw["geom"]
             p = (w.shape[0] - 1) // 2
             rows = n * (h2 - 2 * p) * (w2 - 2 * p)
-        macs = rows * w.numel()
+        macs = rows * math.prod(w.shape)  # HWIO or packed: the logical weights
     elif name in ("conv_int8", "dw_int8"):  # dw weights are (kh, kw, 1, C)
         macs = out.numel() * w.shape[0] * w.shape[1] * w.shape[2]
     elif name == "ir_block":  # per pixel: cin x ce expand, k x k x ce depthwise, ce x cout project
@@ -774,9 +781,14 @@ def device_ms(fn, reps: int = 10):
 def compare(name, args, kw):
     """Kernel vs plain version on the same inputs; raises unless equal.
     Returns (kernel output, max abs error)."""
-    k = KERNELS[name]
-    got = k["fn"](*args, **kw)
-    want = k["plain"](*args, **kw)
+    got = KERNELS[name]["fn"](*args, **kw)
+    return got, check_plain(name, args, kw, got)
+
+
+def check_plain(name, args, kw, got):
+    """A kernel's output `got` against its plain version on the same inputs;
+    raises unless equal.  Returns the max abs error."""
+    want = KERNELS[name]["plain"](*args, **kw)
     if got.device.type == "cuda":
         torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -790,7 +802,7 @@ def compare(name, args, kw):
             f"{diff.numel()} elements, max abs err {err}; first at {bad[0].tolist()}: "
             f"kernel {got[tuple(bad[0])].item()}, plain {want[tuple(bad[0])].item()}"
         )
-    return got, err
+    return err
 
 
 def describe(args, kw) -> str:
@@ -1034,7 +1046,7 @@ def layers_by_weight(eng: IntEngine):
 
 
 def hwio(w):
-    """A K2 call's weights as HWIO, as K6 takes them."""
+    """A K2 call's weights as HWIO, as F.conv2d takes them."""
     return conv_ops.unpack_conv_weight(w) if isinstance(w, conv_ops.PackedConvWeight) else w
 
 
@@ -1071,8 +1083,8 @@ def flat_kwargs(kw, geom, mask_pad: bool, mask_value: int):
 
 
 def flat_phase(paths):
-    """K6 on the paths' own activations, each call against its plain
-    version on every row of the raster and, unpacked, against K2:
+    """K6 on the paths' own activations, with the weights K2 was handed
+    (packed once by the engine), launches counted:
       * ResNet-50's stride-1 3x3 convs, one K6 call each on the recorded
         input packed flat (pad = the layer's packed zero), the ring
         unmasked: what lands there is computed across image boundaries;
@@ -1080,22 +1092,22 @@ def flat_phase(paths):
         raster: body.0 into requant8 with its ring masked to body.1's
         packed zero, then body.1 into int32 -- equal to K2's chain only if
         the ring mask is right.
-    Returns [(label, [(K6 args, kwargs, output, max abs err)], [(K2 args,
-    kwargs)])], one entry per conv or chain."""
-    groups = []
+    Per path, the launch counts are set to 0 just before its calls and read
+    just after (on a card: one K6 launch per call and no other kernel); then
+    each call is held to its plain version on every row of the raster and,
+    unpacked, to K2's recorded output.  Returns ([(label, [(K6 args, kwargs,
+    output, max abs err)], [(K2 args, kwargs)])], one entry per conv or
+    chain; {path: the launch counts read after its calls})."""
+    jobs = []  # (label, [(K6 args, kwargs)], [(K2 args, kwargs, K2 output)])
     eng, _, checked = paths["resnet50"]
     names = layers_by_weight(eng)
     for name, cargs, kw, out, _ in checked:
         if name != "conv_int8" or kw["stride"] != 1 or cargs[1].shape[0] != 3:
             continue
         x, wp, b = cargs
-        w = hwio(wp)
         xf, geom = flat_ops.pack_flat(x, 1, kw["pad_value"])
         fkw = flat_kwargs(kw, geom, mask_pad=False, mask_value=0)
-        y, err = compare("conv_flat_int8", (xf, w, b), fkw)
-        if not torch.equal(flat_ops.unpack_flat(y, geom, 1), out):
-            raise AssertionError(f"conv_flat_int8 at {names[id(wp)]}: differs from conv_int8")
-        groups.append((f"resnet50 {names[id(wp)]}", [((xf, w, b), fkw, y, err)], [(cargs, kw)]))
+        jobs.append((f"resnet50 {names[id(wp)]}", [((xf, wp, b), fkw)], [(cargs, kw, out)]))
     eng, _, checked = paths["resnet18"]
     names = layers_by_weight(eng)
     calls = {names[id(c[1][1])]: c for c in checked if c[0] == "conv_int8"}
@@ -1105,21 +1117,46 @@ def flat_phase(paths):
         _, args0, kw0, out0, _ = calls[meta.body[0]]
         _, args1, kw1, out1, _ = calls[meta.body[1]]
         (x0, wp0, b0), (_, wp1, b1) = args0, args1
-        w0, w1 = hwio(wp0), hwio(wp1)
         xf, geom = flat_ops.pack_flat(x0, 1, kw0["pad_value"])
         k0 = flat_kwargs(kw0, geom, mask_pad=True, mask_value=kw1["pad_value"])
-        y0, e0 = compare("conv_flat_int8", (xf, w0, b0), k0)
         k1 = flat_kwargs(kw1, geom, mask_pad=True, mask_value=0)
-        y1, e1 = compare("conv_flat_int8", (y0, w1, b1), k1)
-        if not (torch.equal(flat_ops.unpack_flat(y0, geom, 1), out0)
-                and torch.equal(flat_ops.unpack_flat(y1, geom, 1), out1)):
-            raise AssertionError(f"conv_flat_int8 chain of {meta.body}: differs from conv_int8's")
-        groups.append((
-            f"resnet18 {meta.body[0]} -> {meta.body[1]}",
-            [((xf, w0, b0), k0, y0, e0), ((y0, w1, b1), k1, y1, e1)],
-            [(args0, kw0), (args1, kw1)],
-        ))
-    return groups
+        # body.1's input is body.0's output: filled in as the chain runs
+        jobs.append((f"resnet18 {meta.body[0]} -> {meta.body[1]}",
+                     [((xf, wp0, b0), k0), ((None, wp1, b1), k1)],
+                     [(args0, kw0, out0), (args1, kw1, out1)]))
+    fn = KERNELS["conv_flat_int8"]["fn"]
+    outs, path_counts = [], {}
+    for path in dict.fromkeys(label.split()[0] for label, _, _ in jobs):
+        reset_launches()
+        ncalls = 0
+        for label, k6, _ in jobs:
+            if label.split()[0] != path:
+                continue
+            ys = []
+            for i, (args, kw) in enumerate(k6):
+                if args[0] is None:
+                    args = (ys[-1], *args[1:])
+                    k6[i] = (args, kw)
+                ys.append(fn(*args, **kw))
+            outs.append(ys)
+            ncalls += len(ys)
+        if outs[-1][0].device.type == "cuda":
+            torch.cuda.synchronize()
+        path_counts[path] = launches()
+        want = {name: ncalls if name == "conv_flat_int8" else 0 for name in KERNELS}
+        if outs[-1][0].device.type == "cuda" and path_counts[path] != want:
+            raise AssertionError(f"flat phase {path}: launches {path_counts[path]}, "
+                                 f"expected {want}")
+    groups = []
+    for (label, k6, k2), ys in zip(jobs, outs):
+        calls = []
+        for (args, kw), y, (_, _, out) in zip(k6, ys, k2):
+            err = check_plain("conv_flat_int8", args, kw, y)
+            if not torch.equal(flat_ops.unpack_flat(y, kw["geom"], 1), out):
+                raise AssertionError(f"conv_flat_int8 at {label}: differs from conv_int8")
+            calls.append((args, kw, y, err))
+        groups.append((label, calls, [(a, kw) for a, kw, _ in k2]))
+    return groups, path_counts
 
 
 def new_row(name):
@@ -1176,6 +1213,23 @@ def log_k2_table(rows, card: str) -> None:
         log(f"  K2 | {path} | {m} | {k} | {n} | {kh}x{kh}/s{st} | {conv_ops.BM}x{plan.bn} | {plan.splits} | "
             f"{plan.blocks} | {calls} | {ms / calls:.4f} | {bound:.5f} | {ms / calls / bound:.1f} | "
             f"{lib:.4f}")
+
+
+def log_k6_table(rows, card: str) -> None:
+    """K6's calls one by one: shape, ring mask and epilogue, plan
+    (ops/conv_flat.py:plan_flat), device ms beside the bound, K2's ms and
+    F.conv2d's (float32) at the same call."""
+    log(f"K6 per call, batch {BATCH}, {IMAGE_SIZE} px ({card}): conv | M | C | O | mask "
+        f"| epilogue | tile | split | blocks | smem | K6 ms | bound ms | x bound "
+        f"| K2 ms | F.conv2d ms")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (args, kw, out, _), ms, bound, k2_ms, lib_ms in rows:
+        (m, c), o, w2 = args[0].shape, out.shape[1], kw["geom"][2]
+        plan = flat_ops.plan_flat(m, c, o, kw["kernel"][0], w2, sms)
+        log(f"  K6 | {label} | {m} | {c} | {o} | {kw['mask_pad']} | {kw['epilogue']} | "
+            f"{flat_ops.BM}x{plan.bn} | {plan.splits} | {plan.blocks(m, o)} | "
+            f"{flat_ops.flat_smem(kw['kernel'][0], w2, plan.bn, plan.splits)} | {ms:.4f} | {bound:.5f} | {ms / bound:.1f} | {k2_ms:.4f} | "
+            f"{lib_ms:.4f}")
 
 
 def log_k5_table(rows, card: str) -> None:
@@ -1332,8 +1386,9 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
     """Times every kernel call of every forward, K6 on its recorded
     activations beside K2, K1's extra requant8 call, and each path's whole
     forwards in each rung beside the bf16 baseline; logs the K2, K5 and K7
-    tables and the images/s table.  `extra` is (args, kwargs, output) of
-    K1's extra call; `images` the batch the forwards are timed on.  Returns {kernel: its row of the kernel table}."""
+    tables and the images/s table.  `flat` is what flat_phase returned;
+    `extra` is (args, kwargs, output) of K1's extra call; `images` the batch
+    the forwards are timed on.  Returns {kernel: its row of the kernel table}."""
     extra, extra_kw, extra_out = extra
     # timing: each call of each forward (all three rungs); a kernel's row
     # sums its calls, a GEMM's library time sums torch._int_mm at the same
@@ -1380,11 +1435,18 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
             if name == "ir_block":
                 k5_rows.append((RUNGS.get(rung, "strict"), cargs, kw, out, ms, bound))
     row = table["conv_flat_int8"]
+    k6_rows = []
+    flat, flat_counts = flat
     for label, k6_calls, k2_calls in flat:
         path = label.split()[0]
-        k6 = sum(time_into(row, path, 0, "conv_flat_int8", *c)[0] for c in k6_calls)
-        k2 = sum(device_ms(lambda: conv_ops.conv_int8(*a, **kw))[0] for a, kw in k2_calls)
-        lib = sum(library_conv_ms(None, "conv_int8", a, kw) for a, kw in k2_calls)
+        k6 = k2 = lib = 0.0
+        for c6, (a2, kw2) in zip(k6_calls, k2_calls):
+            ms6, bound = time_into(row, path, flat_counts[path]["conv_flat_int8"],
+                                   "conv_flat_int8", *c6)
+            ms2 = device_ms(lambda: conv_ops.conv_int8(*a2, **kw2))[0]
+            lib_ms = library_conv_ms(None, "conv_int8", a2, kw2)
+            k6_rows.append((label, c6, ms6, bound, ms2, lib_ms))
+            k6, k2, lib = k6 + ms6, k2 + ms2, lib + lib_ms
         add_to(row, path, "library_ms", lib)
         log(f"{label}: conv_flat_int8 {k6:.4f} ms, conv_int8 {k2:.4f} ms, F.conv2d (float32, "
             f"channels_last, no epilogue) {lib:.4f} ms at the same call(s)")
@@ -1399,6 +1461,7 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
     log_k4_table(k4_rows, card, float(smi("clocks.max.sm").split()[0]))
     log_k5_table(k5_rows, card)
     log_k7_table(k7_rows, card)
+    log_k6_table(k6_rows, card)
 
     # whole forwards: the bf16 baseline first, then each rung, per path, in
     # one call on one card; cuDNN picks its fastest algorithm for the
@@ -2995,7 +3058,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: {n} of {counts['int8_gemm_v2']} K7 calls held to K1")
         log(f"{path} {RUNGS.get(rung, 'strict')}: all {n} int8_gemm_v2 calls bitwise equal to "
             f"int8_gemm on the same inputs")
-    flat = flat_phase(paths)
+    flat, flat_counts = flat_phase(paths)
     for label, k6_calls, _ in flat:
         log(f"kernel conv_flat_int8 {label}: {len(k6_calls)} call(s) equal to its plain version "
             f"on every row and, unpacked, to conv_int8")
@@ -3028,7 +3091,8 @@ def main(argv=None) -> int:
 
     clocks = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     log(f"clocks before timing ({clocks}): {smi(clocks)}")
-    table = timing_phase(forwards, paths, flat, (extra, extra_kw, extra_out), images, device, card)
+    table = timing_phase(forwards, paths, (flat, flat_counts), (extra, extra_kw, extra_out),
+                         images, device, card)
     log(f"clocks after timing ({clocks}): {smi(clocks)}")
     t0 = time.time()
     train_launches, _, train_calls = train_phase(args.seed, card, device)
@@ -3043,7 +3107,8 @@ def main(argv=None) -> int:
         extra_keys = {key: row[key] for key in ("k1_ms", "k2_ms") if key in row}
         kernels.append(dict(
             name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-            launches=sum(counts[name] for _, counts, _ in forwards.values()),
+            launches=sum(counts[name] for _, counts, _ in forwards.values())
+            + sum(counts[name] for counts in flat_counts.values()),
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",

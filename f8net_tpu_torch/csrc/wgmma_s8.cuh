@@ -1,10 +1,11 @@
 // Hopper primitives of the port's wgmma kernels (K2 int8_conv.cu, K5
-// ir_block.cu, K7 int8_gemm_v2.cu): the warpgroup product
+// ir_block.cu, K6 conv_flat.cu, K7 int8_gemm_v2.cu): the warpgroup product
 // wgmma.mma_async m64nNk32 (N = 32, 64, 128) with s8 operands and s32
 // accumulators, its shared-memory matrix descriptors, the fences that order
 // it against the generic-proxy writes (cp.async, st.shared) that fill its
-// operands, and the shared-memory mbarriers of K7's producer/consumer ring.
-// K1, K3 and K6 keep mma_tile.cuh's mma.sync tile.
+// operands, the shared-memory mbarriers of K6's and K7's producer/consumer
+// rings, and the 1-D bulk copy (cp.async.bulk) that K6's producer fills its
+// ring with.  K1 and K3 keep mma_tile.cuh's mma.sync tile.
 //
 // Operand layout in shared memory ("no swizzle", K-major, both operands):
 // a tile of R rows (M rows of A, N columns of B) by 64 bytes of the
@@ -174,6 +175,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
       "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// Make the barriers' initialisation visible to the other threads and to the
+// async proxy (the bulk copies' completion) before their first use.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// as mbar_wait, but after about 2^32 clocks (seconds) of waiting it traps: a
+// launch error where a broken hand-off would hang the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 4294967296;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on `bar` that also expects `bytes` more bytes of transactions
+// (the bulk copies that complete on it) before its phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory by the async proxy, completing as
+// transactions on `bar`: no thread waits on it, and wgmma, in the same
+// proxy, reads what it wrote without a proxy fence
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time K1, K4, K5 and K7 under every plan their planners consider, on one
-card.
+"""Time K1, K4, K5, K6 and K7 under every plan their planners consider, on
+one card.
 
-    python3 probe_plans.py [--batch 8] [--seed 0] [--only k1k4,k4parts,k5,k7,mbv1]
+    python3 probe_plans.py [--batch 8] [--seed 0] [--only k1k4,k4parts,k5,k6,k6parts,k7,mbv1]
 
 For each distinct K5 call of MobileNetV2 (224 px) in the form each engine
 rung gives it (strict: int32 carry and output; int8-boundary: 1-byte carry,
@@ -26,7 +26,15 @@ the halo copies -- each variant built with nvcc into f8net_tpu_torch/_build/:
 where the kernel's time goes.  K4 and K7 at MobileNetV1's depthwise and
 pointwise calls (224 px, batch 8 and 64; 13 of each, 9 distinct shapes of
 each, a shape's time counted once per call in the sums) under every plan
-their planners weigh.  `--only` runs the named probes alone.
+their planners weigh.  K6 at ResNet-18's and ResNet-50's stride-1 3x3 convs on
+the flat raster (224 px, batch 8 and 64) in the forms chip_smoke.py's flat
+phase gives them, under every plan ops.conv_flat.flat_candidates lists (both
+tile widths, split 1-8 ways across a cluster),
+each output checked bitwise against plan_flat's plan's, with K2 at the same
+calls; and K6 at the four shapes, batch 8, with parts of csrc/conv_flat.cu
+cut out or changed (a deeper weight ring, no products, no halo copies, no
+output stores; each variant built with nvcc) and at k = 1 and 5 on the same
+rasters: where a call's time goes.  `--only` runs the named probes alone.
 Prints one line per (shape, plan), the planner's choice marked `*`, and the
 card's name and power limit.  Needs a CUDA device.
 """
@@ -44,6 +52,7 @@ import subprocess
 
 import chip_smoke
 from f8net_tpu_torch.ops import _build
+from f8net_tpu_torch.ops import conv as conv_ops, conv_flat as flat_ops
 from f8net_tpu_torch.ops import dw as dw_ops
 from f8net_tpu_torch.ops import gemm as gemm_ops
 from f8net_tpu_torch.ops import gemm_v2 as gemm_v2_ops
@@ -100,7 +109,42 @@ MBV1_K7_CALLS = {
     (196, 512, 512, "requant8"): 5, (49, 512, 1024, "requant8"): 1,
     (49, 1024, 1024, "int32"): 1,
 }
-PROBES = ("k1k4", "k4parts", "k5", "k7", "mbv1")
+# K6 at ResNet's stride-1 3x3 convs on the flat raster (224 px), in the
+# forms chip_smoke.py's flat phase gives them: (h, w, c, o, form) and calls
+# per forward of its groups -- ResNet-18's 5 BasicBlocks as chains (body.0
+# requant8 with the ring masked, body.1 int32 masked), ResNet-50's 13 convs
+# (requant8, ring unmasked)
+K6_CALLS = {
+    (56, 56, 64, 64, "requant8 masked"): 2, (56, 56, 64, 64, "int32 masked"): 2,
+    (56, 56, 64, 64, "requant8 open"): 3,
+    (28, 28, 128, 128, "requant8 masked"): 1, (28, 28, 128, 128, "int32 masked"): 1,
+    (28, 28, 128, 128, "requant8 open"): 3,
+    (14, 14, 256, 256, "requant8 masked"): 1, (14, 14, 256, 256, "int32 masked"): 1,
+    (14, 14, 256, 256, "requant8 open"): 5,
+    (7, 7, 512, 512, "requant8 masked"): 1, (7, 7, 512, 512, "int32 masked"): 1,
+    (7, 7, 512, 512, "requant8 open"): 2,
+}
+K6_FORMS = {
+    "requant8 masked": dict(epilogue="requant8", net=9, out_signed=False, mask_pad=True,
+                            mask_value=-128),
+    "int32 masked": dict(epilogue="int32", mask_pad=True, mask_value=0),
+    "requant8 open": dict(epilogue="requant8", net=9, out_signed=False, mask_pad=False),
+}
+# K6 with parts cut out or changed: (name, [(text in csrc/conv_flat.cu, its replacement)])
+K6_PARTS = [
+    ("whole", []),
+    ("ring of 10 stages", [("constexpr int kFlatStages = 6;", "constexpr int kFlatStages = 10;")]),
+    ("2 products in flight", [("constexpr int kFlatInFlight = 1;",
+                               "constexpr int kFlatInFlight = 2;")]),
+    ("3 products in flight", [("constexpr int kFlatInFlight = 1;",
+                               "constexpr int kFlatInFlight = 3;")]),
+    ("no products", [("wgmma_s8<BN>(acc, da, db, step > 0 || kk > 0);", "(void)da, (void)db;")]),
+    ("no halo copies", [("for (int q = tid; q < a.R * 4; q += kFlatConsumers)",
+                         "for (int q = tid; q < 0; q += kFlatConsumers)")]),
+    ("no output stores", [("flat_write_rows(s, tr0, 64 * h, m0, n0, sbias, sflags, ep, out, a);",
+                           "(void)ep;")]),
+]
+PROBES = ("k1k4", "k4parts", "k5", "k6", "k6parts", "k7", "mbv1")
 
 # the K5 form of a residual and of another block's call in each rung:
 # (carry dtype or None, output)
@@ -209,6 +253,39 @@ def probe_mbv1(ints, sms, card):
     probe("K7 MBv1", card, list(MBV1_K7_CALLS), k7_plans_of, k7_run, calls=MBV1_K7_CALLS)
 
 
+def probe_k6(ints, sms, card):
+    """K6 at K6_CALLS under every plan ops.conv_flat.flat_candidates lists,
+    each output checked bitwise against plan_flat's plan's; K2 (conv_int8,
+    the same packed weights) at the same call for reference."""
+    def k6_run(b, shape):
+        h, w, c, o, form = shape
+        x = ints((b, h, w, c), -128, 128)
+        wp = conv_ops.pack_conv_weight(ints((3, 3, c, o), -127, 128))
+        bias = ints((o,), -(1 << 16), 1 << 16, np.int32)
+        xf, geom = flat_ops.pack_flat(x, 1, -128)
+        kw = dict(K6_FORMS[form], geom=geom)
+        return (f"{b}x{h}x{w}x{c} -> {o} {form}",
+                lambda plan: flat_ops.conv_flat_int8(xf, wp, bias, plan=plan, **kw))
+
+    def k6_plans(b, shape):
+        h, w, c, o, _ = shape
+        m, w2 = b * (h + 2) * (w + 2), w + 2
+        return flat_ops.plan_flat(m, c, o, 3, w2, sms), flat_ops.flat_candidates(c, o, 3, w2)
+
+    print(f"K6 plans ({card}): batch | x -> O form | plan | ms", flush=True)
+    probe("K6", card, list(K6_CALLS), k6_plans, k6_run, calls=K6_CALLS)
+    print(f"K2 at the same calls ({card}): batch | x -> O form | K2 ms", flush=True)
+    for b in K1_K4_BATCHES:
+        for h, w, c, o, form in K6_CALLS:
+            x = ints((b, h, w, c), -128, 128)
+            wp = conv_ops.pack_conv_weight(ints((3, 3, c, o), -127, 128))
+            bias = ints((o,), -(1 << 16), 1 << 16, np.int32)
+            kw = {k: v for k, v in K6_FORMS[form].items() if not k.startswith("mask")}
+            ms = chip_smoke.device_ms(lambda: conv_ops.conv_int8(
+                x, wp, bias, padding=1, pad_value=-128, **kw))[0]
+            print(f"  K2 | {b} | {b}x{h}x{w}x{c} -> {o} {form} | {ms:.4f}", flush=True)
+
+
 def probe_k1_k4(rng, dev, sms, card):
     def ints(shape, lo, hi, dtype=np.int8):
         return torch.from_numpy(rng.randint(lo, hi, shape).astype(dtype)).to(dev)
@@ -292,6 +369,68 @@ def probe_k4_parts(sms, card):
               + " | ".join(f"{t:.2f}" for t in times), flush=True)
 
 
+def probe_k6_parts(ints, sms, card):
+    """K6 at ResNet's four stride-1 3x3 shapes, batch 8, requant8 with the
+    ring masked, under plan_flat's plan: with parts of csrc/conv_flat.cu
+    cut out or changed (K6_PARTS, each built with nvcc into
+    f8net_tpu_torch/_build/), and whole at k = 1, 3 and 5 on the same raster
+    (1, 9 and 25 steps per slice): where a call's time goes."""
+    src = (_build.CSRC / "conv_flat.cu").read_text()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    procs = []
+    for i, (_, cuts) in enumerate(K6_PARTS):
+        text = src
+        for old, new in cuts:
+            if old not in text:
+                raise AssertionError(f"k6parts: {old!r} is not in csrc/conv_flat.cu")
+            text = text.replace(old, new)
+        cu = _build.BUILD_DIR / f"flat_parts_{i}.cu"
+        cu.write_text(text)
+        so = _build.BUILD_DIR / f"flat_parts_{i}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique",
+               "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.DEVNULL), so))
+    fns = []
+    for proc, so in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"k6parts: nvcc failed for {so.name}")
+        lib = ctypes.CDLL(str(so))
+        lib.f8_error_string.restype = ctypes.c_char_p
+        fn = lib.f8_conv_flat
+        fn.argtypes = flat_ops._ARGTYPES
+        fns.append((lib, fn))
+    dev = torch.device("cuda")
+    print(f"K6 parts, batch 8, requant8, ring masked ({card}): call | plan | "
+          + " | ".join(n for n, _ in K6_PARTS) + " | whole at k = 1 | k = 5 (device us)",
+          flush=True)
+    for h, w, c, o, form in K6_CALLS:
+        if form != "requant8 masked":
+            continue
+        x = ints((8, h, w, c), -128, 128)
+        xf, geom = flat_ops.pack_flat(x, 1, -128)
+        m, w2 = xf.shape[0], geom[2]
+        wp = conv_ops.pack_conv_weight(ints((3, 3, c, o), -127, 128))
+        bias = ints((o,), -(1 << 16), 1 << 16, np.int32)
+        out = torch.empty((m, o), dtype=torch.int8, device=dev)
+        plan = flat_ops.plan_flat(m, c, o, 3, w2, sms)
+        times = []
+        for (name, _), (lib, fn) in zip(K6_PARTS, fns):
+            def run(fn=fn, lib=lib, name=name):
+                rc = fn(xf.data_ptr(), wp.data.data_ptr(), bias.data_ptr(), out.data_ptr(), m, c,
+                        o, geom[1], w2, 3, 1, 9, 0, 0, 1, -128, plan.bn, plan.splits,
+                        torch.cuda.current_stream(dev).cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"k6parts {name}: {lib.f8_error_string(rc).decode()}")
+            times.append(chip_smoke.device_ms(run)[0] * 1e3)
+        kw = dict(K6_FORMS["requant8 masked"], geom=geom)
+        for k in (1, 5):  # packed beforehand: device_ms counts every kernel of the call
+            wk = conv_ops.pack_conv_weight(ints((k, k, c, o), -127, 128))
+            times.append(chip_smoke.device_ms(
+                lambda: flat_ops.conv_flat_int8(xf, wk, bias, kernel=(k, k), **kw))[0] * 1e3)
+        print(f"  K6 parts | 8x{h}x{w}x{c} -> {o} | {plan.bn} wide, split {plan.splits} | "
+              + " | ".join(f"{t:.2f}" for t in times), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -320,6 +459,10 @@ def main(argv=None) -> int:
         probe_k4_parts(sms, card)
     if "k5" in only:
         probe_k5(n, ints, sms, card)
+    if "k6" in only:
+        probe_k6(ints, sms, card)
+    if "k6parts" in only:
+        probe_k6_parts(ints, sms, card)
     if "k7" in only:
         probe_k7(n, ints, sms, card)
     if "mbv1" in only:

@@ -19,8 +19,11 @@ channel counts, under forced plans (band heights with halos, Ce split
 across clusters of 2-8), with plain and packed weights, K7 at K = 64 and
 K = 2048 with M tails, at M = 25088, under forced plans (both tile widths,
 clusters of 2 and 8, persistent grids smaller than the tile count), with
-plain and packed weights, K6 on every row of 7x7 and 56x56 rasters with the ring masked and
-not, negative shifts, ReLU, and biases that make the int32 epilogue and the
+plain and packed weights, K6 on every row of 7x7, 14x14 and 56x56 rasters
+with the ring masked and not, at C = 16, 48 and 80 (a channel slice that
+reaches into the next tap's weights), halos of more than 256 rows, on HWIO
+and packed weights under every plan its planner weighs (split across
+clusters or not, both tile widths), negative shifts, ReLU, and biases that make the int32 epilogue and the
 K5 carry add wrap; K5's boundary-rung forms (1-byte carry with offsets 0
 and 128, bf16 output) under every plan its planner weighs at MobileNetV2's
 shapes, at couts whose 1-byte carry rows are 4- and 8-byte aligned, at
@@ -46,7 +49,7 @@ from f8net_tpu_torch.ops import dw as dw_ops
 from f8net_tpu_torch.ops import gemm as gemm_ops
 from f8net_tpu_torch.ops.gemm_v2 import GemmPlan, pack_gemm_weight
 from f8net_tpu_torch.ops.ir_block import _layout as ir_layout
-from f8net_tpu_torch.ops.conv_flat import conv_flat_int8_plain
+from f8net_tpu_torch.ops.conv_flat import conv_flat_int8_plain, flat_candidates, plan_flat
 from f8net_tpu_torch.ops.dw import dw_int8_plain
 from f8net_tpu_torch.ops.gemm import int8_gemm_plain
 from f8net_tpu_torch.ops.ir_block import fused_ir_block_plain
@@ -176,32 +179,49 @@ def test_int8_gemm_v2_plans_vs_plain(dev, M, K, N, plan):
 
 # (n, h, w, c, o, k, pad_value)
 FLAT_SHAPES = [
-    (8, 7, 7, 512, 512, 3, -128),
+    (8, 7, 7, 512, 512, 3, -128),  # ResNet's 7x7 stage at batch 8: split across clusters
+    (8, 14, 14, 256, 256, 3, -128),  # its 14x14 stage
     (2, 56, 56, 64, 64, 3, -128),
     (1, 56, 56, 512, 64, 3, 0),
     (2, 7, 7, 64, 68, 3, 0),
     (2, 9, 11, 48, 20, 5, -128),
     (3, 1, 2, 16, 8, 3, 0),
+    (2, 5, 6, 16, 20, 3, -128),  # channel tails: C = 16, 48, 80 reach into the next tap
+    (1, 9, 13, 80, 68, 5, 0),
+    (1, 3, 200, 16, 8, 3, -128),  # a halo of R = 534 > 256 rows
+    (1, 5, 120, 48, 64, 5, 0),  # 5x5 on a wide raster: R = 628
 ]
 
 
 @pytest.mark.parametrize("n,h,w,c,o,k,pad_value", FLAT_SHAPES)
 @pytest.mark.parametrize("mask_pad", [True, False])
 def test_conv_flat_kernel_vs_plain(dev, n, h, w, c, o, k, pad_value, mask_pad):
+    """K6 on HWIO and packed weights, under its planner's plan and under
+    every plan flat_candidates lists (both tile widths, split and not),
+    every row bitwise equal to the plain version."""
     rng = np.random.RandomState(h * w + c + o + k + mask_pad)
     p = (k - 1) // 2
     x, wt = _int8(rng, (n, h, w, c)), _int8(rng, (k, k, c, o), -127)
     b = _bias(rng, o, wrap=not mask_pad)
     xf, geom = pack_flat(x, p, pad_value)
+    xd, wd, bd = xf.to(dev), wt.to(dev), b.to(dev)
+    wp = pack_conv_weight(wd)
+    plans = flat_candidates(c, o, k, geom[2])
+    assert plans
     for kw in GEMM_EPILOGUES:
         if kw["epilogue"] == "int32":
             mask_value = 3
         else:  # the consumer's packed zero
             mask_value = 0 if kw["out_signed"] else -128
         kw = dict(kw, geom=geom, kernel=(k, k), mask_pad=mask_pad, mask_value=mask_value)
-        got = conv_flat_int8(xf.to(dev), wt.to(dev), b.to(dev), **kw)
+        want = conv_flat_int8_plain(xf, wt, b, **kw)
+        got = conv_flat_int8(xd, wd, bd, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), conv_flat_int8_plain(xf, wt, b, **kw)), kw  # every row
+        assert torch.equal(got.cpu(), want), kw  # every row
+        for plan in plans:
+            got = conv_flat_int8(xd, wp, bd, plan=plan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (plan, kw)
         if kw["epilogue"] == "int32" and not kw.get("relu"):  # the interior is K2's conv
             want = conv_int8_plain(x, wt, b, padding=p, pad_value=pad_value)
             assert torch.equal(unpack_flat(got.cpu(), geom, p), want)
@@ -738,9 +758,22 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         conv_flat_int8(xf16, w33, b24[:16], geom=geom16, kernel=(2, 2))
     with pytest.raises(ValueError, match="mask_value"):
         conv_flat_int8(xf16, w33, b24[:16], geom=geom16, epilogue="requant8", mask_value=200)
-    # a halo of 1501 rows (2 * 1501 staged rows of 80 bytes) exceeds one block's shared memory
-    xw, geomw = pack_flat(torch.zeros((1, 1, 1498, 16), dtype=torch.int8, device=dev), 1, 0)
-    with pytest.raises(RuntimeError, match="rows of width 1500 at pad 1"):
+    # K6 plans and packed weights that do not fit the call: another call's
+    # plan, a PackedConvWeight of other channels
+    with pytest.raises(ValueError, match="plan does not fit"):
+        conv_flat_int8(xf16, w33, b24[:16], geom=geom16,
+                       plan=plan_flat(8 * 9 * 9, 512, 512, 3, 9))
+    with pytest.raises(ValueError, match="w shape"):
+        conv_flat_int8(xf16, pack_conv_weight(torch.zeros((3, 3, 32, 16), dtype=torch.int8,
+                                                          device=dev)), b24[:16], geom=geom16)
+    p33 = pack_conv_weight(w33)
+    with pytest.raises(ValueError, match="packed weight data"):
+        conv_flat_int8(xf16, p33._replace(data=p33.data[:4].contiguous()), b24[:16],
+                       geom=geom16)
+    # a halo of 128 + 2 * 1601 rows of 64 bytes, with the weight ring,
+    # exceeds one block's shared memory
+    xw, geomw = pack_flat(torch.zeros((1, 1, 1598, 16), dtype=torch.int8, device=dev), 1, 0)
+    with pytest.raises(RuntimeError, match="rows of width 1600 at pad 1"):
         conv_flat_int8(xw, w33, b24[:16], geom=geomw)
 
 

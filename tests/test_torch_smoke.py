@@ -79,7 +79,9 @@ def test_smoke_k7_and_flat_phases_on_cpu():
         checked = [(n, a, kw, *chip_smoke.compare(n, a, kw)) for n, a, kw in calls]
         paths[path] = (eng, counts, checked)
     assert chip_smoke.k7_against_k1(paths["resnet50"][2]) == 33
-    flat = chip_smoke.flat_phase(paths)
+    flat, flat_counts = chip_smoke.flat_phase(paths)
+    assert list(flat_counts) == ["resnet50", "resnet18"]
+    assert all(n == 0 for counts in flat_counts.values() for n in counts.values())  # no card
     assert [len(k6) for _, k6, _ in flat] == [1] * 13 + [2] * 5
     assert sum(label.startswith("resnet18") for label, _, _ in flat) == 5
     for _, k6, k2 in flat:
