@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --dp-cards 4     # the dp phase alone, over NCCL
-    python3 chip_smoke.py --mp-cards 4     # the tp and pp phases alone, over NCCL
+    python3 chip_smoke.py --mp-cards 4     # the tp, pp and xserve phases alone, over NCCL
 
 Drives the port's four main paths -- ResNet-18, MobileNetV2, ResNet-50 and
 MobileNetV1 integer inference at 224x224, full width, 1000 classes -- each
@@ -14,7 +14,9 @@ calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 from the seed; the port's own QAT forward and bake; and its training path
 (Trainer, sgd_update, checkpoints, the Loader on its native and PIL paths,
 the run.py CLI, the parity harness, data parallelism over two processes);
-and the multi-card inference engines (tensor- and pipeline-parallel):
+the multi-card inference engines (tensor- and pipeline-parallel); serving
+across ranks (ServingEngine(mesh=), CrossHostServingEngine); and the
+offline tools:
 
   build    compile every CUDA kernel from f8net_tpu_torch/csrc, one nvcc per
            source, all at once
@@ -47,7 +49,13 @@ and the multi-card inference engines (tensor- and pipeline-parallel):
            eval forward with int_infer, each within BAKE_ATOL of the integer
            logits, with top-1 agreement logged; the train-mode forward's
            wall ms and the baked plan's clamped and zero shares logged, not
-           gated (the weights are random and barely trained)
+           gated (the weights are random and barely trained); then the
+           offline tools (f8net_tpu_torch/tools): error_analysis's
+           fit_all_metrics with fix_quant on the card equal to the same
+           call on the CPU, weight_boxplot's folded_weight_stats of the
+           baked ResNet-18 within rtol 1e-6 of the same on CPU copies,
+           fraclen_visual's profile_table of its fraclen report (one row
+           per layer)
   serve    ResNet-18 (the engine phase's synthetic bundle) behind
            ServingEngine(IntEngine(...), buckets=SERVE_BUCKETS, ring of
            SERVE_RING images, 224x224x3 uint8), strict and bf16 rungs (the
@@ -150,6 +158,27 @@ and the multi-card inference engines (tensor- and pipeline-parallel):
            NCCL wrap check, and wall and device ms per forward (strict) of
            MP_TIMED_PATHS at batch 8 and 64 under TP (1, N) and PP (N stages,
            MP_TIMED_MICRO microbatches) beside the single-card engine's
+  xserve   (after tp and pp) ResNet-18 (the engine phase's bundle) in the
+           strict and bf16 rungs served across MP_WORLD spawned ranks that
+           share the card over gloo, buckets SERVE_BUCKETS:
+           ServingEngine(mesh=make_mesh(data=2)) over IntEngine replicas,
+           ServingEngine(mesh=make_mesh(data=1, model=2)) over TPEngine
+           (rank 0 the front end), CrossHostServingEngine on (2, 1), each
+           rank with its own clients and images (first one image, which
+           must run the smallest bucket in some round, and one request of
+           the per-host shard, which must run the largest); per ingesting
+           rank XSERVE_CLIENTS closed-loop clients, a checked window and a
+           measured one.  Every served row bitwise equal to the single-card
+           engine's row for its image; every forward of every rank
+           launching its routing's table (19 K2 + 1 K3 + 1 K1 per replica,
+           IntEngine.launch_table under TP), every kernel call of each
+           rank's first XSERVE_CHECKED forwards equal to its plain version;
+           every CrossHost leader ran the same coordination ticks; logged:
+           rank 0's mesh collectives and bytes per round, served images/s,
+           client p50/p99, coordination ms per tick, and one card's
+           ServingEngine on the same traffic.  With --mp-cards N: N ranks
+           over NCCL, a card each, ServingEngine on (N, 1) and (2, N/2),
+           CrossHost on (N, 1)
   flat     K6, which no engine calls, on the paths' own activations and the
            weights the engine packed for K2: each of ResNet-50's stride-1
            3x3 convs, and ResNet-18's stride-1 BasicBlocks as two-conv
@@ -186,8 +215,8 @@ packed layouts.
 The serve, export and train phases' numbers are logged on lines before the
 kernel table.  A kernel's `launches` there are those of the twelve forwards
 (K6's: of the flat phase); the table adds each kernel's launches while serving
-(`serve_launches`) and on the tp and pp phases' forwards, summed over the
-ranks (`tp_launches`, `pp_launches`).
+(`serve_launches`) and on the tp, pp and xserve phases' forwards, summed
+over the ranks (`tp_launches`, `pp_launches`, `xserve_launches`).
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -241,7 +270,9 @@ from f8net_tpu_torch.train import (
     SGDState, checkpoint as train_ckpt, load_checkpoint, loop as train_loop, save_checkpoint,
     sgd_update, weight_decay_mask,
 )
+from f8net_tpu_torch.tools import error_analysis, fraclen_visual, weight_boxplot
 from f8net_tpu_torch.utils.flags import from_flags, load_yaml
+from f8net_tpu_torch.utils.reporting import fraclen_report, parse_fraclen_report
 from f8net_tpu_torch.utils.profiling import H100_PEAK_OPS, model_flops
 
 IMAGE_SIZE = 224
@@ -349,6 +380,16 @@ MP_WORLD, PP_MICRO, MP_TIMED_MICRO, MP_TIMEOUT = 2, 4, 8, 900.0
 MP_TP_PATHS = ("resnet18", "resnet50", "mobilenet_v2", "mobilenet_v1")
 MP_PP_PATHS = ("resnet18", "mobilenet_v2")
 MP_TIMED_PATHS = ("resnet50", "mobilenet_v2")
+# the xserve phase: ResNet-18 (the engine phase's bundle) in the strict and
+# bf16 rungs behind ServingEngine(mesh=) over IntEngine replicas at (N, 1)
+# and over TPEngine at (1, N) -- (2, N/2) at 4 cards -- and behind
+# CrossHostServingEngine at (N, 1), buckets SERVE_BUCKETS; per ingesting rank
+# XSERVE_CLIENTS closed-loop clients of XSERVE_REQUESTS requests of 1-4
+# images from its region of XSERVE_POOL images, twice (a checked window, then
+# a measured one); each rank's first XSERVE_CHECKED forwards have every
+# kernel call held against its plain version; CrossHost ticks every
+# XSERVE_TICK_MS
+XSERVE_POOL, XSERVE_CLIENTS, XSERVE_REQUESTS, XSERVE_CHECKED, XSERVE_TICK_MS = 1024, 8, 6, 2, 2.0
 # the lines of the CLI's fraclen report (logged as a count)
 REPORT_KEYS = ("layer name:", "alpha:", "master layer", "weight format:", "input format:",
                "fix scaling:", "following layer fix scaling:", "input_fraclen:",
@@ -1535,7 +1576,52 @@ def bake_phase(seed: int, images, card: str):
             f"top-1 agreement {agree:.3f}")
         if not err <= tol:
             raise AssertionError(f"bake: {what} parts from the integer engine by {err} > {tol}")
+    tools_phase(model, params, state, card)
     return counts, checked, (model, plan, int_params, eng)
+
+
+def tools_phase(model, params, state, card: str) -> None:
+    """The offline tools (f8net_tpu_torch/tools) on the bake phase's
+    ResNet-18 and on the card: error_analysis.fit_all_metrics with fix_quant
+    on the card equal to the same call on the CPU (exact float32 arithmetic
+    both ways); weight_boxplot.folded_weight_stats of every conv within
+    rtol 1e-6 of the same on CPU copies of the params and state;
+    fraclen_visual.profile_table of the card's fraclen report, one row per
+    layer (logged: whether the CPU copy's table is the same text)."""
+    dev = next(iter(params.values()))["w"].device
+    t0 = time.perf_counter()
+    fits = error_analysis.fit_all_metrics(device=dev)
+    t_fit = time.perf_counter() - t0
+    if fits != error_analysis.fit_all_metrics(device="cpu"):
+        raise AssertionError(f"tools: fit_all_metrics on {dev} differs from the CPU's: {fits}")
+    log(f"tools: fit_all_metrics (n 10000) on {dev} in {t_fit:.2f} s equal to the CPU's: "
+        + ", ".join(f"{'signed' if s else 'unsigned'} {m} {v:.1f}" for s, d in fits.items()
+                    for m, v in d.items()) + f" ({card})")
+    host = lambda tree: {k: {kk: v.detach().cpu() for kk, v in d.items()}  # noqa: E731
+                         for k, d in tree.items()}
+    stats = weight_boxplot.folded_weight_stats(model, params, state)
+    want = weight_boxplot.folded_weight_stats(model, host(params), host(state))
+    for name, st in want.items():
+        for key, v in st.items():
+            if not math.isclose(stats[name][key], v, rel_tol=1e-6, abs_tol=0.0):
+                raise AssertionError(f"tools: folded weight {key} of {name}: {stats[name][key]} on "
+                                     f"{dev}, {v} on the CPU")
+    widest = max(stats, key=lambda n: stats[n]["max"] - stats[n]["min"])
+    log(f"tools: folded_weight_stats of {len(stats)} convs within rtol 1e-6 of the CPU's; widest "
+        f"{widest} [{stats[widest]['min']:.4f}, {stats[widest]['max']:.4f}], std "
+        f"{stats[widest]['std']:.4f}")
+    tables = []
+    for p, st in ((params, state), (host(params), host(state))):
+        buf = io.StringIO()
+        fraclen_report(model, p, st, print_fn=lambda t: buf.write(t + "\n"))
+        tables.append(fraclen_visual.profile_table(parse_fraclen_report(buf.getvalue())))
+    rows = tables[0].splitlines()
+    if len(rows) != len(model.graph.names()) + 1:
+        raise AssertionError(f"tools: profile_table has {len(rows)} lines for "
+                             f"{len(model.graph.names())} layers")
+    log(f"tools: profile_table of the card's fraclen report: {len(rows) - 1} layers "
+        f"({rows[1]!r} ... {rows[-1]!r}); the CPU copy's table "
+        f"{'the same text' if tables[0] == tables[1] else 'differs'}")
 
 
 # -- serve and export -----------------------------------------------------------
@@ -2984,6 +3070,284 @@ def mp_engines(seed: int, images, device) -> dict:
     return out
 
 
+# -- xserve --------------------------------------------------------------------
+
+
+def xserve_pool(seed: int, side: int) -> np.ndarray:
+    """The xserve phase's images: XSERVE_POOL distinct random uint8 images,
+    each with its index in its first pixel (image_id)."""
+    rng = np.random.RandomState(seed + 13)
+    shape = (XSERVE_POOL, side, side, 3)
+    pool = np.frombuffer(rng.bytes(math.prod(shape)), np.uint8).reshape(shape).copy()
+    ids = np.arange(XSERVE_POOL)
+    pool[:, 0, 0] = np.stack([ids % 256, ids // 256 % 256, ids // 65536], 1)
+    return pool
+
+
+def xserve_traffic(pool, seed: int, slot: int, slots: int, per_host: int):
+    """One ingesting rank's requests, slices of the pool in a region of its
+    own: XSERVE_CLIENTS clients of XSERVE_REQUESTS requests of 1-4 images,
+    then (CrossHost's waves) one image and one request of the per-host
+    shard.  Returns (clients, waves)."""
+    region = len(pool) // slots
+    k = slot * region
+    clients = []
+    for sizes in np.random.RandomState(seed + 17 + slot).randint(1, 5, (XSERVE_CLIENTS,
+                                                                       XSERVE_REQUESTS)):
+        reqs = []
+        for n in sizes:
+            reqs.append(pool[k:k + n])
+            k += n
+        clients.append(reqs)
+    if k + 1 + per_host > (slot + 1) * region:
+        raise ValueError("xserve: a rank's requests overflow its region of the pool")
+    return clients, [pool[k:k + 1], pool[k + 1:k + 1 + per_host]]
+
+
+class XServeEngine:
+    """A rank's engine behind a server in the xserve phase: counts each
+    forward's launches (its table: the routing's), and holds every kernel
+    call of the first XSERVE_CHECKED forwards against its plain version
+    (those comparisons' own launches counted apart)."""
+
+    def __init__(self, engine):
+        self.engine, self.device = engine, engine.device
+        self.rec = Recorder(engine)
+        self.deltas, self.checked, self.max_err, self.extra = [], 0, 0, {n: 0 for n in KERNELS}
+
+    def __call__(self, x):
+        self.rec.calls = []
+        before = launches()
+        y = self.engine(x)
+        after = launches()
+        self.deltas.append({k: after[k] - before[k] for k in after})
+        if self.checked < XSERVE_CHECKED:
+            self.checked += 1
+            for name, args, kw in self.rec.calls:
+                self.max_err = max(self.max_err, compare(name, args, kw)[1])
+                self.extra[name] += 1
+        self.rec.calls = []
+        return y
+
+
+def xserve_rows(label, want, served) -> int:
+    """Every served row bitwise the single-card engine's for its image."""
+    for req, y, *_ in served:
+        if not np.array_equal(y, want[image_id(req)]):
+            raise AssertionError(f"{label}: a request of images {image_id(req).tolist()} differs "
+                                 f"from the single-card engine's rows")
+    return sum(len(r[0]) for r in served)
+
+
+def xserve_rank(rank: int, world: int, port: int, settings: dict) -> None:
+    """One rank of the xserve phase, in a process of its own (spawned): joins
+    the group, builds each case's mesh, engine and server, drives it (the
+    ingesting ranks send their clients' traffic: a checked window, then a
+    measured one), checks every served row and every forward's launches,
+    and writes what it saw to settings["out"]/rank<r>.pt."""
+    from f8net_tpu_torch.engine import CrossHostServingEngine, TPEngine
+    from f8net_tpu_torch.parallel import init_dist, make_mesh
+
+    device = torch.device(settings["device"])
+    if device.type == "cuda" and settings["backend"] == "gloo":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(settings["threads"])
+    init_dist(f"tcp://127.0.0.1:{port}", rank, world, backend=settings["backend"])
+    if device.type == "cuda":  # the card init_dist chose, for the servers' threads too
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        data = torch.load(settings["payload"], weights_only=False)
+        entry = data["entry"]
+        model, plan = mp_model("resnet18", entry)
+        pool = xserve_pool(settings["seed"], entry["image_size"])
+        meshes, res = {}, {}
+        for kind, shape, rung in settings["cases"]:
+            if shape not in meshes:
+                meshes[shape] = make_mesh(*shape, device=device)
+            mesh = meshes[shape]
+            kw = {rung: True} if rung else {}
+            eng = (TPEngine(model, plan, entry["params"], mesh, device=device, **kw) if shape[1] > 1
+                   else IntEngine(model, plan, entry["params"], device=device, **kw))
+            table = {name: eng.launch_table().get(name, 0) for name in KERNELS}
+            probe = XServeEngine(eng)
+            label = f"xserve {kind} {shape} {RUNGS.get(rung, 'strict')} rank {rank}"
+            mesh.reset_counts()
+            reset_launches()
+            if kind == "serve":
+                srv = ServingEngine(probe, mesh=mesh, buckets=SERVE_BUCKETS,
+                                    max_wait_ms=SERVE_WAIT_MS, ring_capacity=SERVE_RING,
+                                    image_shape=pool.shape[1:], image_dtype=np.uint8)
+                ingest = srv.front
+                slot, slots = 0, 1
+            else:
+                srv = CrossHostServingEngine(probe, mesh, buckets=SERVE_BUCKETS,
+                                             tick_ms=XSERVE_TICK_MS, image_shape=pool.shape[1:],
+                                             image_dtype=np.uint8)
+                ingest = srv.leader
+                slot, slots = mesh.index("data"), mesh.size("data")
+            out = {}
+            srv.start()
+            try:
+                if ingest:
+                    clients, waves = xserve_traffic(pool, settings["seed"], slot, slots,
+                                                    max(SERVE_BUCKETS) // slots)
+                    served = []
+                    if kind == "xhost":  # low load, then one full per-host shard
+                        for req in waves:
+                            served.append((req, srv.infer(req, timeout=SERVE_TIMEOUT)))
+                    _, checked = run_clients(srv, clients)
+                    r0 = srv.stats["images"] + srv.stats["padded"]
+                    wall, measured = run_clients(srv, clients)
+                    rows = srv.stats["images"] + srv.stats["padded"] - r0
+                    n = xserve_rows(label, data["want"][rung], served + checked + measured)
+                    p50, p99 = latency_ms(measured)
+                    out.update(images_s=sum(len(m[0]) for m in measured) / wall,
+                               rows_s=rows / wall, served_rows=n, p50=p50, p99=p99)
+            finally:
+                srv.stop()
+            if srv._thread.is_alive():
+                raise AssertionError(f"{label}: the server's loop did not end")
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                for i, d in enumerate(probe.deltas):
+                    if d != table:
+                        raise AssertionError(f"{label}: forward {i} launched {d}, its routing's "
+                                             f"table {table}")
+                total = {k: sum(d[k] for d in probe.deltas) + probe.extra[k] for k in KERNELS}
+                if launches() != total:
+                    raise AssertionError(f"{label}: counters {launches()}, forwards and checks "
+                                         f"{total}")
+            if probe.checked < min(XSERVE_CHECKED, len(probe.deltas)):
+                raise AssertionError(f"{label}: {probe.checked} forwards checked")
+            out.update(stats=dict(srv.stats) if ingest else None, counts=dict(mesh.counts),
+                       forwards=len(probe.deltas), table=table, max_err=probe.max_err,
+                       checked_calls=sum(probe.extra.values()), checked=probe.checked,
+                       launches={k: sum(d[k] for d in probe.deltas) for k in KERNELS})
+            res[(kind, shape, rung)] = out
+            del srv, probe, eng
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        torch.save(res, os.path.join(settings["out"], f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def xserve_single(eng: IntEngine, pool, clients, want) -> dict:
+    """One card's ServingEngine on the front end's traffic (a warm-up
+    window, then the measured one), its rows checked: images/s, p50, p99."""
+    srv = ServingEngine(eng, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+                        ring_capacity=SERVE_RING, image_shape=pool.shape[1:], image_dtype=np.uint8)
+    srv.start()
+    try:
+        run_clients(srv, clients)
+        wall, measured = run_clients(srv, clients)
+    finally:
+        srv.stop()
+    xserve_rows("xserve single card", want, measured)
+    p50, p99 = latency_ms(measured)
+    return dict(images_s=sum(len(m[0]) for m in measured) / wall, p50=p50, p99=p99)
+
+
+def xserve_phase(forwards, card: str, seed: int, device="cuda", world: int = MP_WORLD,
+                 backend: str = "gloo") -> dict:
+    """The xserve phase (module docstring): `world` ranks sharing card 0
+    over gloo, or (backend "nccl") each on a card of its own.  Returns the
+    launches by kernel, summed over ranks and forwards."""
+    import multiprocessing
+    import socket
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    rungs = (None, "bf16_boundary")
+    meshes = [(world, 1), (1, world) if world == 2 else (2, world // 2)]
+    cases = ([("serve", m, r) for m in meshes for r in rungs]
+             + [("xhost", (world, 1), r) for r in rungs])
+    base = forwards[("resnet18", None)][0]
+    side = 32 * base.model.pool_kernel
+    pool = xserve_pool(seed, side)
+    want = {}
+    for rung in rungs:
+        eng = forwards[("resnet18", rung)][0]
+        want[rung] = torch.cat([eng(torch.from_numpy(pool[i:i + 64]).to(dev)).cpu()
+                                for i in range(0, len(pool), 64)]).numpy()
+    clients, _ = xserve_traffic(pool, seed, 0, 1, max(SERVE_BUCKETS))
+    single = {r: xserve_single(forwards[("resnet18", r)][0], pool, clients, want[r])
+              for r in rungs}
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = os.path.join(tmp, "payload.pt")
+        torch.save(dict(want=want, entry=dict(
+            image_size=side, num_classes=base.model.num_classes,
+            records=[(p.name, p.input_fl, p.weight_fl, p.input_symmetric) for p in base.plan.layers],
+            params={n: {k: v.cpu() for k, v in d.items() if k in ("w", "b")}
+                    for n, d in base.params.items()})), payload)
+        settings = dict(device=str(dev), backend=backend, out=tmp, payload=payload, seed=seed,
+                        threads=torch.get_num_threads(), cases=cases)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=xserve_rank, args=(r, world, port, settings))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(MP_TIMEOUT)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        if alive or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"xserve: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    how = "sharing the card over gloo" if backend == "gloo" else f"a card each over {backend}"
+    total = {name: 0 for name in KERNELS}
+    for key in cases:
+        kind, shape, rung = key
+        outs = [rk[key] for rk in ranks]
+        for o in outs:
+            for name in KERNELS:
+                total[name] += o["launches"][name]
+        name = f"xserve {kind} (data, model) = {shape} {RUNGS.get(rung, 'strict')}"
+        ingest = [r for r, o in enumerate(outs) if o["stats"] is not None]
+        st = outs[ingest[0]]["stats"]
+        rounds = st["batches"] + st.get("idle_rounds", 0)
+        c0 = outs[0]["counts"]
+        per_round = ", ".join(f"{k} {c0[k] / rounds:.2f}" for k in sorted(c0) if not k.endswith("_bytes"))
+        per_round_b = ", ".join(f"{k[:-6]} {c0[k] / rounds:.0f} B" for k in sorted(c0)
+                                if k.endswith("_bytes"))
+        launched = {k: v for k, v in outs[0]["table"].items() if v}
+        log(f"{name}, {world} ranks {how}: {sum(o['served_rows'] for o in outs if 'served_rows' in o)} "
+            f"served rows bitwise equal to the single-card engine's; each rank's "
+            f"{', '.join(str(o['forwards']) for o in outs)} forwards launched its routing's "
+            f"table ({launched} on rank 0); {sum(o['checked_calls'] for o in outs)} kernel calls of "
+            f"{sum(o['checked'] for o in outs)} checked forwards equal to their plain versions")
+        log(f"{name}: rank 0's mesh collectives per round ({rounds} rounds): {per_round}; "
+            f"{per_round_b}")
+        if kind == "xhost":
+            ticks = {outs[r]["stats"]["coord_ticks"] for r in ingest}
+            if len(ticks) != 1:
+                raise AssertionError(f"{name}: the leaders ran {ticks} coordination ticks")
+            hits = st["bucket_hits"]
+            if not (hits.get(min(SERVE_BUCKETS)) and hits.get(max(SERVE_BUCKETS))):
+                raise AssertionError(f"{name}: the low-load round or the per-host shard missed "
+                                     f"its bucket: {st}")
+            coord = (1e3 * st.get("coord_s_steady", 0.0) / max(st.get("coord_ticks_steady", 0), 1))
+            log(f"{name}: every leader {ticks.pop()} coordination ticks; bucket hits {hits}; "
+                f"coordination {coord:.4f} ms per tick in steady state (rank 0; the all-reduce "
+                f"and the wait for the slowest leader) ({card})")
+        for r in ingest:
+            o = outs[r]
+            log(f"{name} rank {r}: {XSERVE_CLIENTS} closed-loop clients, {o['images_s']:.1f} "
+                f"images/s served ({o['rows_s']:.1f} rows/s computed), latency p50 {o['p50']:.3f} "
+                f"ms p99 {o['p99']:.3f} ms; stats {o['stats']} ({card})")
+        sc = single[rung]
+        log(f"{name}: one card's ServingEngine on rank 0's traffic: {sc['images_s']:.1f} images/s, "
+            f"p50 {sc['p50']:.3f} ms p99 {sc['p99']:.3f} ms ({card})")
+    log(f"xserve phase: {time.perf_counter() - t_start:.1f} s wall, {world} ranks {how} ({card})")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3034,8 +3398,9 @@ def main(argv=None) -> int:
             print(f"chip_smoke: --mp-cards {n} with {torch.cuda.device_count()} card(s)",
                   file=sys.stderr)
             return 1
-        mp_phase(mp_engines(args.seed, images, device), images, card, args.seed, device,
-                 world=n, backend="nccl", timed=True)
+        engines = mp_engines(args.seed, images, device)
+        mp_phase(engines, images, card, args.seed, device, world=n, backend="nccl", timed=True)
+        xserve_phase(engines, card, args.seed, device, world=n, backend="nccl")
         log(f"chip_smoke --mp-cards {n}: {time.time() - t_script:.1f} s wall ({card})")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3101,6 +3466,7 @@ def main(argv=None) -> int:
         f"trained checkpoint equal to their plain versions ({card})")
     dp_phase(args.seed, card, device)
     mp_launches = mp_phase(forwards, images, card, args.seed, device)
+    xserve_launches = xserve_phase(forwards, card, args.seed, device)
     kernels = []
     for name, k in KERNELS.items():
         row = table[name]
@@ -3114,6 +3480,7 @@ def main(argv=None) -> int:
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
             library_ms=row["library_ms"], **extra_keys, serve_launches=serve_counts[name],
             tp_launches=mp_launches["tp"][name], pp_launches=mp_launches["pp"][name],
+            xserve_launches=xserve_launches[name],
             by_path=row["by_path"],
         ))
     log(f"chip_smoke: {time.time() - t_script:.1f} s wall ({card})")

@@ -26,8 +26,39 @@ The dispatcher thread launches every kernel, on the engine's device: the
 kernels' launch counters are plain attributes, so no other thread may run
 the engine while the server does.
 
-Not ported here: `mesh=` (data-parallel dispatch) and the reference's
-`CrossHostServingEngine` belong to multi-GPU serving (ROADMAP item 1.10).
+Across cards (the port of `:163-168`, `:395-405` and `:432-691`), on a
+`parallel.Mesh` of processes, one rank per card (or several sharing one
+card over gloo):
+
+  * `ServingEngine(engine, mesh=mesh)`, built and started on every rank of
+    the mesh: rank 0 (data 0, model 0) is the front end -- the queue, the
+    ring, the buckets, the padding and the stats above, unchanged -- and
+    `submit` anywhere else raises.  Each device batch is one round: a
+    fixed-size int64 header (stop flag, the row slice's dtype and shape)
+    goes to every rank by broadcast, down the data-row leaders' line
+    (model index 0) and along each row; each data row's leader receives
+    only its slice of the padded batch (`parallel.mesh.shard_batch`'s rows)
+    and broadcasts it along its row; every rank calls `engine(its row's
+    slice)` -- a `TPEngine` shard or an `IntEngine` replica -- and each
+    leader sends its row's logits back to rank 0, which puts them in data
+    order and routes them.  A round is synchronous on the front end: its
+    logits come back before the next batch is sent.  The stop round ends
+    every rank's loop; a follower's `stop()` waits for it.
+  * `CrossHostServingEngine(engine, mesh, ...)`: a "host" of the reference
+    is a data row.  Every row's leader (every rank where model == 1) runs a
+    queue of its own; each tick the leaders agree, by one all-reduce of a
+    (depth, stop) pair per row along their data line, on the bucket (the
+    smallest holding the global demand) and on shutdown; the leader pads
+    its rows to the bucket's per-row shard and broadcasts it along its row,
+    every rank of the row runs the engine on it, and the leader routes its
+    own rows.  Rows exchange nothing else.
+
+On a mesh an engine error on any rank fails that batch's futures (every
+rank of a row learns of its peers' errors by one all-reduce of their
+messages); the round completes, so the ranks stay in step.  A failure of
+the transport itself (a peer gone) ends every rank's loop: the front end's
+futures and queued requests fail, a follower's `stop()` raises.  Under
+NCCL every header and payload crosses on the card; under gloo, on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +72,16 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def _device_of(engine) -> torch.device:
+    """Where the engine computes ("cpu" for one that does not say).  A card
+    without an index is the current card of the thread that builds the
+    server: the dispatcher thread computes there."""
+    dev = torch.device(getattr(engine, "device", None) or "cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _host_array(shape, dtype, pinned: bool) -> np.ndarray:
@@ -176,12 +217,11 @@ class ServingEngine:
         is the device batch size.  ring_capacity (in images, >= 2x the
         batch; 4x keeps it off the allocator's critical path) with
         image_shape and image_dtype: the zero-copy ingestion ring for
-        requests of that row shape and dtype.  mesh: not ported (raises)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...): data-parallel dispatch over several cards is "
-                "multi-GPU serving, ROADMAP item 1.10"
-            )
+        requests of that row shape and dtype.  mesh: a `parallel.Mesh` this
+        process is a rank of; every rank builds the server with the same
+        buckets (each a multiple of the data axis) and starts it, rank 0 is
+        the front end (module docstring).  The ring lives on the front
+        end; the other ranks learn the row shape from each round."""
         self.engine = engine
         if buckets:
             buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -191,11 +231,24 @@ class ServingEngine:
         batch_size = batch_size or 64
         self.buckets = buckets or (batch_size,)
         self.batch_size = batch_size
+        self.mesh = mesh
+        if mesh is not None:
+            if not mesh.member:
+                raise ValueError("this process is not a rank of the mesh")
+            d = mesh.size(mesh.axes[0])
+            if any(b % d for b in self.buckets):
+                raise ValueError(f"every bucket must shard evenly over the mesh's data axis: "
+                                 f"{self.buckets} over {d}")
+        self._wire = _Wire(mesh) if mesh is not None and _ranks(mesh) > 1 else None
+        self.front = self._wire is None or not any(mesh.coords.values())
         self.max_wait_ms = max_wait_ms
-        self.device = torch.device(getattr(engine, "device", None) or "cpu")
+        self.device = _device_of(engine)
+        self.error: Optional[BaseException] = None
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._loop, daemon=True, name=name)
+        self._thread = threading.Thread(target=self._loop if self.front else _follow,
+                                        args=() if self.front else (self,), daemon=True,
+                                        name=name)
         self._started = False
         # reusable batch buffers, 2 per bucket (round-robin matching the
         # one-deep pipeline): tail rows keep stale data instead of paying a
@@ -203,7 +256,7 @@ class ServingEngine:
         self._bufs = {}
         self._ring = None
         self._submit_lock = threading.Lock()
-        if ring_capacity:
+        if ring_capacity and self.front:
             if image_shape is None:
                 raise ValueError("ring ingestion needs image_shape")
             if ring_capacity < 2 * batch_size:
@@ -224,6 +277,11 @@ class ServingEngine:
         return self
 
     def stop(self):
+        """The front end: ends the dispatcher (and on a mesh sends the stop
+        round).  Any other rank: waits for the front end's stop round, and
+        raises what ended its loop if the mesh failed."""
+        if not self.front:
+            return _await_stop(self)
         self._stop.set()
         if self._started:
             self._thread.join(timeout=5.0)
@@ -231,9 +289,14 @@ class ServingEngine:
     def submit(self, images: np.ndarray) -> Future:
         """images: (H,W,C) or (n,H,W,C) conditioned engine input (numpy).
         Returns a Future resolving to the logits for those images (numpy)."""
+        if not self.front:
+            raise ValueError("submit requests to the front end, rank 0 of the mesh")
         if images.ndim == 3:
             images = images[None]
         fut: Future = Future()
+        if self.error is not None:
+            fut.set_exception(self.error)
+            return fut
         ring = self._ring
         if (
             ring is not None
@@ -296,9 +359,9 @@ class ServingEngine:
         batch k is routed at once: the reference's loop waits there up to
         100 ms for a next request first, a latency floor under light load.
         The current CUDA device is per thread: the loop runs on the
-        engine's."""
-        on_card = self.device.type == "cuda"
-        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+        engine's.  On a mesh each launch is a whole round (`_mesh_round`),
+        so nothing overlaps."""
+        with _on(self.device):
             pending = []  # [((host logits, event), items, valid rows, ring free point)]
             while not self._stop.is_set():
                 items = self._collect(wait=not pending)
@@ -306,11 +369,16 @@ class ServingEngine:
                 if items:
                     try:
                         launched = self._launch(items)
+                    except MeshError as e:  # the mesh is gone: nothing more is served
+                        self.error = e
+                        _fail(items, e)
+                        break
                     except Exception as e:  # route errors to the waiting futures
                         _fail(items, e)
                 self._drain(pending)
                 pending = launched
             self._drain(pending)
+            _close(self, data=True)
 
     def _drain(self, pending):
         """Route each launched batch's logits (the blocking step) and free
@@ -411,13 +479,52 @@ class ServingEngine:
         that batch's copy on the same stream.  From any other array (an
         exact-fit copy batch, the heads of an oversized request) the copy
         is synchronous with the host.  On the CPU torch.from_numpy would
-        alias the reusable buffer, so it is copied."""
-        x = torch.from_numpy(batch)
+        alias the reusable buffer, so it is copied.  On a mesh: one round
+        (`_mesh_round`)."""
+        if self._wire is not None:
+            return self._mesh_round(batch), None
+        return _fetch(self.engine(self._to_engine(torch.from_numpy(batch))))
+
+    def _to_engine(self, x: torch.Tensor) -> torch.Tensor:
         if self.device.type == "cuda":
-            x = x.to(self.device, non_blocking=True)
-        else:
-            x = x.clone()
-        return _fetch(self.engine(x))
+            return x.to(self.device, non_blocking=True)
+        return x.clone()
+
+    def _mesh_round(self, batch: np.ndarray) -> torch.Tensor:
+        """One round of the padded batch over the mesh (module docstring):
+        the header to every rank, each data row's slice to its leader and
+        along its row, the engine on rank 0's own slice, the other rows'
+        logits back in data order.  Returns the batch's logits on the host.
+        An engine error anywhere raises once the round is complete; a
+        transport error raises MeshError."""
+        w, mesh = self._wire, self.mesh
+        x = torch.from_numpy(batch)
+        per = x.shape[0] // mesh.size(w.data)
+        try:
+            w.header(_describe(0, x[:per]))
+            sends = [mesh.isend(w.put(t), w.data, d)
+                     for d, t in enumerate(x.split(per)) if d]
+            own = w.row(w.put(x[:per]))
+            err, y = _call(self.engine, self._to_engine(own))
+            failed = w.row_errors(err)
+            for sent in sends:
+                sent.wait()
+            parts = [None if y is None else y.cpu()]
+            for d in range(1, mesh.size(w.data)):
+                flag, dtype, shape = _read(mesh.recv((_WORDS,), torch.int64, w.data, d,
+                                                     device=w.device))
+                if flag:
+                    text = mesh.recv((flag,), torch.uint8, w.data, d, device=w.device)
+                    failed.append(bytes(text.cpu().tolist()).decode(errors="replace"))
+                else:
+                    parts.append(mesh.recv(shape, dtype, w.data, d, device=w.device).cpu())
+        except Exception as e:
+            raise MeshError(f"the mesh's transport failed: {e!r}") from e
+        if err is not None and len(failed) == 1:
+            raise err
+        if failed:
+            raise RuntimeError("the engine failed on the mesh: " + "; ".join(failed))
+        return torch.cat(parts)
 
     def _route(self, logits, items, valid: Optional[int] = None):
         return _route_rows(self.stats, logits, items, valid)
@@ -464,3 +571,439 @@ def _route_rows(stats, logits, items, valid: Optional[int] = None):
         setattr(fut, "_serving_offset", done_rows + take)
         if done_rows + take == k and not fut.done():
             fut.set_result(np.concatenate(prev, axis=0))
+
+
+# -- across cards ---------------------------------------------------------------
+
+# dtypes a header can name (its code is the index)
+_WIRE_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64, torch.float16,
+                torch.bfloat16, torch.float32, torch.float64)
+_WORDS = 8  # int64 words of a header: flag, dtype code, ndim, up to 5 dims
+_ERR_BYTES = 256  # of each rank's engine error message in a row's exchange
+
+
+class MeshError(RuntimeError):
+    """The mesh's transport failed (a peer is gone): the server stops."""
+
+
+def _ranks(mesh) -> int:
+    return mesh.size(mesh.axes[0]) * mesh.size(mesh.axes[1])
+
+
+def _on(device: torch.device):
+    """The current CUDA device is per thread: a server's loop runs on its
+    engine's."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _call(engine, x):
+    """(error, None) or (None, engine(x)): an engine error is held until the
+    round is complete."""
+    try:
+        return None, engine(x)
+    except Exception as e:
+        return e, None
+
+
+def _describe(flag: int, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A header: the flag, then t's dtype and shape (without t: the flag
+    alone)."""
+    words = [int(flag)] + [0] * (_WORDS - 1)
+    if t is not None:
+        if t.dim() > _WORDS - 3:
+            raise ValueError(f"a header holds up to {_WORDS - 3} dims, not {t.dim()}")
+        words[1:3] = _WIRE_DTYPES.index(t.dtype), t.dim()
+        words[3:3 + t.dim()] = t.shape
+    return torch.tensor(words, dtype=torch.int64)
+
+
+def _read(words: torch.Tensor):
+    """(flag, dtype, shape) of a header."""
+    w = words.cpu().tolist()
+    return w[0], _WIRE_DTYPES[w[1]], tuple(w[3:3 + w[2]])
+
+
+class _Wire:
+    """A server's traffic over a mesh, each piece one of the mesh's counted
+    collectives: headers, a row's payload, a row's engine errors.  Tensors
+    cross on the card under NCCL and on the host under gloo (`device`)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.data, self.model = mesh.axes
+        self.lead = mesh.index(self.model) == 0
+        self.device = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+    def put(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device)
+
+    def header(self, words: Optional[torch.Tensor] = None, data: bool = True):
+        """Index 0's header (`words`, there) to every rank: along the
+        leaders' data line (with `data`), then along each row.  Returns
+        (flag, dtype, shape)."""
+        t = (self.put(words) if words is not None
+             else torch.empty(_WORDS, dtype=torch.int64, device=self.device))
+        if data and self.lead:
+            self.mesh.broadcast(t, self.data, 0)
+        self.mesh.broadcast(t, self.model, 0)
+        return _read(t)
+
+    def row(self, t: Optional[torch.Tensor], shape=None, dtype=None) -> torch.Tensor:
+        """The leader's payload `t` to every rank of its row (the others pass
+        its shape and dtype)."""
+        if t is None:
+            t = torch.empty(shape, dtype=dtype, device=self.device)
+        return self.mesh.broadcast(t, self.model, 0)
+
+    def row_errors(self, err: Optional[BaseException]) -> list:
+        """Every rank of the row learns which of them failed: one all-reduce
+        of their messages (each rank writes its own slot).  Returns
+        ["rank r: message", ...]."""
+        me = self.mesh.ranks[self.model][self.mesh.index(self.model)]
+        text = "" if err is None else f"rank {me}: {type(err).__name__}: {err}"
+        m = self.mesh.size(self.model)
+        if m == 1:
+            return [text] if text else []
+        buf = torch.zeros((m, _ERR_BYTES), dtype=torch.uint8)
+        raw = text.encode()[:_ERR_BYTES]
+        if raw:
+            buf[self.mesh.index(self.model), :len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+        buf = self.mesh.all_reduce(self.put(buf), self.model).cpu()
+        return [bytes(r).rstrip(b"\0").decode(errors="replace") for r in buf.tolist() if any(r)]
+
+
+def _follow(server) -> None:
+    """The loop of a rank that does not ingest; what ends it other than the
+    stop round is kept in `server.error`."""
+    with _on(server.device):
+        try:
+            _follow_rounds(server.engine, server.device, server._wire)
+        except Exception as e:
+            server.error = e
+
+
+def _await_stop(server) -> None:
+    """A follower's stop(): waits for the stop round; raises what ended the
+    loop if the mesh failed."""
+    if server._started:
+        server._thread.join()
+    if server.error is not None:
+        raise server.error
+
+
+def _close(server, data: bool) -> None:
+    """The end of an ingesting rank's loop: the stop round to the ranks that
+    follow it (along the data line too with `data`), or, after a mesh
+    failure, every queued request failed."""
+    if server._wire is not None and server.error is None:
+        try:
+            server._wire.header(_describe(1), data=data)
+        except Exception as e:
+            server.error = MeshError(f"the stop round failed: {e!r}")
+    if server.error is not None:
+        while True:
+            try:
+                _fail([server._q.get_nowait()], server.error)
+            except queue.Empty:
+                break
+
+
+def _follow_rounds(engine, device: torch.device, wire: _Wire) -> None:
+    """Round after round until the stop round: the header, the row's
+    payload (a ServingEngine row leader first receives it from the front
+    end), the engine on it, the row's errors; a ServingEngine row leader
+    then sends the row's logits, or its errors, back to the front end."""
+    mesh = wire.mesh
+    report = wire.lead  # only a ServingEngine's leaders of rows > 0 follow at model 0
+    while True:
+        flag, dtype, shape = wire.header()
+        if flag:
+            return
+        x = mesh.recv(shape, dtype, wire.data, 0, device=wire.device) if report else None
+        x = wire.row(x, shape, dtype)
+        err, y = _call(engine, x.to(device))
+        failed = wire.row_errors(err)
+        if not report:
+            continue
+        if failed:
+            msg = "; ".join(failed).encode()
+            sent = [mesh.isend(wire.put(_describe(len(msg))), wire.data, 0),
+                    mesh.isend(wire.put(torch.tensor(list(msg), dtype=torch.uint8)), wire.data, 0)]
+        else:
+            y = wire.put(y)
+            sent = [mesh.isend(wire.put(_describe(0, y)), wire.data, 0),
+                    mesh.isend(y, wire.data, 0)]
+        for s in sent:
+            s.wait()
+
+
+class CrossHostServingEngine:
+    """Cross-host continuous batching over a mesh of processes (the port of
+    `f8net_tpu/engine/serve.py:432-691`, "the north-star serving story").
+
+    A host of the reference is a data row of the mesh; its leader (model
+    index 0; every rank where the model axis has one) runs an ingestion
+    queue of its own, and the other ranks of the row follow it.  The
+    dispatcher runs in lockstep rounds: every `tick_ms` each leader
+    coalesces up to `global_batch / rows` of its own requests, the leaders
+    agree on the round's bucket by one all-reduce of each row's (queue
+    depth, stop flag) along their data line (the reference's jitted reduce
+    of a sharded array), the leader pads its shard to the bucket's per-row
+    size and broadcasts it along its row, and every rank of the row runs
+    the engine on it: a `TPEngine` shard, or an `IntEngine` replica.  An
+    idle leader contributes padding rows, which keeps the rounds matched.
+    Each leader routes its own rows' logits to its futures.
+
+    Without processes (torch.distributed not initialised, or a 1x1 mesh)
+    it is single-host continuous batching, as the reference at
+    process_count == 1."""
+
+    def __init__(
+        self,
+        engine,
+        mesh,
+        global_batch: Optional[int] = None,
+        tick_ms: float = 5.0,
+        image_shape=None,
+        image_dtype=np.uint8,
+        buckets=None,
+        prewarm: bool = False,
+        name: str = "f8net-xhost-serving",
+    ):
+        """buckets: optional ascending global batch-size ladder (each a
+        multiple of the mesh's data axis).  Every round the leaders agree on
+        one bucket by the coordination all-reduce: the smallest that holds
+        the global demand and every row's depth, so idle or low-load ticks
+        run the smallest batch.  image_shape: the row shape, required with
+        more than one data row (an idle leader pads rows it never saw);
+        prewarm: run every bucket once on padding before serving (needs
+        image_shape; every rank runs the same sequence)."""
+        if not mesh.member:
+            raise ValueError("this process is not a rank of the mesh")
+        hosts = mesh.size(mesh.axes[0])
+        if buckets:
+            buckets = tuple(sorted(set(int(b) for b in buckets)))
+            if global_batch is not None and global_batch != buckets[-1]:
+                raise ValueError("pass the batch via buckets (largest bucket) or keep them equal")
+            global_batch = buckets[-1]
+        global_batch = global_batch or 64
+        self.buckets = buckets or (global_batch,)
+        if any(b % hosts for b in self.buckets):
+            raise ValueError(f"every bucket must split over the {hosts} data rows: {self.buckets}")
+        if hosts > 1 and image_shape is None:
+            raise ValueError("serving over several data rows needs image_shape up front")
+        if prewarm and image_shape is None:
+            raise ValueError("prewarm needs image_shape")
+        self.image_shape = tuple(image_shape) if image_shape is not None else None
+        self.image_dtype = image_dtype
+        self.engine = engine
+        self.mesh = mesh
+        self.hosts = hosts
+        self.global_batch = global_batch
+        self.per_host = global_batch // hosts
+        self.tick_ms = tick_ms
+        self.prewarm = prewarm
+        self.device = _device_of(engine)
+        self._wire = _Wire(mesh) if _ranks(mesh) > 1 else None
+        self.leader = self._wire is None or self._wire.lead
+        self.error: Optional[BaseException] = None
+        self._q: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop if self.leader else _follow,
+                                        args=() if self.leader else (self,), daemon=True,
+                                        name=name)
+        self._started = False
+        self.stats = {
+            "batches": 0, "images": 0, "padded": 0, "idle_rounds": 0,
+            "bucket_hits": {}, "coord_ticks": 0, "coord_s": 0.0,
+        }
+
+    def start(self):
+        if not self._started:
+            self._thread.start()
+            self._started = True
+        return self
+
+    def stop(self):
+        """A leader: stops ingesting; its loop keeps ticking padding rounds
+        until every leader has stopped, then sends its row the stop round.
+        Any other rank: waits for that stop round (and raises what ended
+        its loop if the mesh failed)."""
+        if not self.leader:
+            return _await_stop(self)
+        self._stop.set()
+        if self._started:
+            self._thread.join(timeout=10.0)
+
+    def submit(self, images: np.ndarray) -> Future:
+        if not self.leader:
+            raise ValueError("submit requests to a data row's leader (model index 0)")
+        if images.ndim == 3:
+            images = images[None]
+        if images.shape[0] > self.per_host:
+            raise ValueError(f"a request of {images.shape[0]} images exceeds the per-host "
+                             f"shard of {self.per_host}")
+        if self.image_shape is not None and tuple(images.shape[1:]) != self.image_shape:
+            raise ValueError(f"row shape {images.shape[1:]} is not the declared "
+                             f"{self.image_shape}: one shape keeps the rounds matched")
+        fut: Future = Future()
+        if self.error is not None:
+            fut.set_exception(self.error)
+            return fut
+        self._q.put((images, fut))
+        return fut
+
+    def infer(self, images: np.ndarray, timeout: Optional[float] = 60.0):
+        return self.submit(images).result(timeout)
+
+    def _collect(self):
+        items, n = [], 0
+        deadline = time.perf_counter() + self.tick_ms / 1e3
+        while n < self.per_host:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            try:
+                item = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if n + item[0].shape[0] > self.per_host:
+                # keep shapes static: defer to the next round
+                self._q.put(item)
+                break
+            items.append(item)
+            n += item[0].shape[0]
+        return items, n
+
+    def _coord(self, n_local: int, stopping: bool):
+        """The coordination collective: (total depth, deepest row, all
+        stopped), the same on every leader.  Each row writes its (depth,
+        stop) pair into its own slots of a 2 x rows int32 vector, summed
+        along the leaders' data line."""
+        mesh = self.mesh
+        v = torch.zeros(2 * self.hosts, dtype=torch.int32)
+        h = mesh.index(mesh.axes[0])
+        v[2 * h], v[2 * h + 1] = n_local, int(stopping)
+        if self._wire is not None:
+            v = mesh.all_reduce(self._wire.put(v), mesh.axes[0]).cpu()
+        depth = v[0::2]
+        return int(depth.sum()), int(depth.max()), bool((v[1::2] == 1).all())
+
+    def _pick_bucket(self, total: int, max_host: int, nproc: int) -> int:
+        for b in self.buckets:
+            if b >= total and b // nproc >= max_host:
+                return b
+        return self.buckets[-1]
+
+    def _forward(self, local: np.ndarray):
+        """The round's shard along the row and the engine on it: (host
+        logits, event) for `_drain`.  An engine error anywhere in the row
+        raises once every rank of it has finished; a transport error raises
+        MeshError."""
+        x = torch.from_numpy(local)
+        err = None
+        if self._wire is None:
+            err, y = _call(self.engine, x.to(self.device))
+            failed = [str(err)] if err is not None else []
+        else:
+            w = self._wire
+            try:
+                w.header(_describe(0, x), data=False)
+                err, y = _call(self.engine, w.row(w.put(x)).to(self.device))
+                failed = w.row_errors(err)
+            except Exception as e:
+                raise MeshError(f"the mesh's transport failed: {e!r}") from e
+        if err is not None and len(failed) == 1:
+            raise err
+        if failed:
+            raise RuntimeError("the engine failed on the row: " + "; ".join(failed))
+        return _fetch(y)
+
+    def _loop(self):
+        with _on(self.device):
+            pending = []  # [((host logits, event), items, valid rows)]: one-deep pipeline
+            try:
+                pending = self._rounds(pending)
+            except MeshError as e:
+                self.error = e
+            self._drain(pending)
+            _close(self, data=False)
+
+    def _rounds(self, pending):
+        shape, dtype = self.image_shape, self.image_dtype
+        nproc = self.hosts
+        # several rows always coordinate (bucket agreement, collective
+        # shutdown); one row coordinates only to pick among buckets
+        coordinated = nproc > 1 or len(self.buckets) > 1
+        if self.prewarm:
+            for b in self.buckets:
+                host, done = self._forward(np.zeros((b // nproc,) + tuple(shape), dtype))
+                if done is not None:
+                    done.synchronize()
+            self.stats["prewarmed"] = list(self.buckets)
+        while True:
+            stopping = self._stop.is_set()
+            if stopping and not coordinated:
+                return pending
+            items, n = ([], 0) if stopping else self._collect()
+            if shape is None and not items:
+                # one row may learn the shape from its first request; skip
+                # empty rounds until then
+                self._drain(pending)
+                pending = []
+                continue
+            if items:
+                shape, dtype = items[0][0].shape[1:], items[0][0].dtype
+            if coordinated:
+                t0 = time.perf_counter()
+                try:
+                    total, max_host, all_stopped = self._coord(n, stopping)
+                except Exception as e:
+                    _fail(items, e)
+                    raise MeshError(f"the coordination failed: {e!r}") from e
+                dt = time.perf_counter() - t0
+                self.stats["coord_s"] += dt
+                self.stats["coord_ticks"] += 1
+                if self.stats["coord_ticks"] > 3:  # steady state: past the first ticks
+                    self.stats["coord_s_steady"] = self.stats.get("coord_s_steady", 0.0) + dt
+                    self.stats["coord_ticks_steady"] = self.stats.get("coord_ticks_steady", 0) + 1
+                if all_stopped:
+                    return pending
+                bucket = self._pick_bucket(total, max_host, nproc)
+            else:
+                bucket = self.buckets[-1]
+            per = bucket // nproc
+            local = np.zeros((per,) + tuple(shape), dtype)
+            row = 0
+            for arr, _ in items:
+                local[row:row + arr.shape[0]] = arr
+                row += arr.shape[0]
+            self.stats["padded"] += per - n
+            if not items:
+                self.stats["idle_rounds"] += 1
+            else:
+                self.stats["bucket_hits"][bucket] = self.stats["bucket_hits"].get(bucket, 0) + 1
+            launched = []
+            try:
+                logits = self._forward(local)
+                launched = [(logits, items, n)] if items else []
+            except MeshError as e:
+                _fail(items, e)
+                raise
+            except Exception as e:
+                _fail(items, e)
+            self._drain(pending)
+            pending = launched
+
+    def _drain(self, pending):
+        """Route each launched round's own rows (the port of `_local_rows`:
+        a leader's logits are its rows alone)."""
+        for (logits, done), its, valid in pending:
+            try:
+                rows = logits.numpy()
+                if done is not None:
+                    done.synchronize()
+                    rows = rows.copy()  # routed rows must not hold the pinned block
+                _route_rows(self.stats, rows, its, valid)
+            except Exception as e:
+                _fail(its, e)

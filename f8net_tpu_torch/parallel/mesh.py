@@ -144,11 +144,12 @@ class Mesh:
             t = t.cpu()
         return _Sent(dist.isend(t.contiguous(), peer, group=self.groups[axis]), t)
 
-    def recv(self, shape, dtype, axis: str, src: int) -> torch.Tensor:
+    def recv(self, shape, dtype, axis: str, src: int, device=None) -> torch.Tensor:
         """A tensor of `shape` and `dtype` from the rank at index `src` of the
-        axis, on this rank's device."""
+        axis, on `device` (default: this rank's device; NCCL receives on the
+        card only)."""
         peer = self.ranks[axis][src]
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
         staged = dev.type == "cuda" and self.backend != "nccl"
         buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else dev)
         dist.recv(buf, peer, group=self.groups[axis])

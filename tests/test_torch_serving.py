@@ -183,11 +183,6 @@ def test_error_routing():
         srv.stop()
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="1.10"):
-        ServingEngine(_EchoEngine(), batch_size=8, mesh=object())
-
-
 def test_cpu_engine_gets_a_copy_of_the_reused_buffer():
     """On the CPU the batch handed to the engine is its own memory, not the
     pad buffer the next batches rewrite."""

@@ -3,7 +3,8 @@ path: the synthetic bundle round trip, the engine run twice (kernels'
 wrappers and plain versions, which are the same code on the CPU), the
 comparisons with the float network, the recorded kernel calls of one
 forward, and the non-degenerate activations the calibration promises; the
-serve and export phases on ResNet-18 with fewer, smaller requests."""
+serve and export phases on ResNet-18 with fewer, smaller requests; the
+offline tools' step."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from _threads import one_torch_thread  # noqa: F401  (autouse: torch on one thre
 
 import chip_smoke
 from f8net_tpu_torch.engine import IntEngine
+from f8net_tpu_torch.models import get_model
 
 
 def _rehearse(path, n_requants):
@@ -220,3 +222,18 @@ def test_dp_phase_on_cpu(monkeypatch, capsys):
     for want in ("rank 0 alone wrote", "run.main at world size 1 in a gloo process group",
                  "dp phase:"):
         assert want in out, want
+
+
+def test_tools_phase_on_cpu(capsys):
+    """chip_smoke.py's offline-tools step on the CPU: a ResNet-18 at 32 px
+    from Model.init, the fits on the CPU against themselves, the folded
+    weight stats and the profile table (one row per layer)."""
+    model = get_model("resnet18", chip_smoke.CFG.replace(pool_fusing=False), num_classes=10,
+                      image_size=32)
+    params, state = model.init(torch.Generator().manual_seed(0), device="cpu")
+    chip_smoke.tools_phase(model, params, state, "cpu")
+    out = capsys.readouterr().out
+    assert "tools: fit_all_metrics (n 10000) on cpu" in out and "signed std 45.1" in out
+    assert "tools: folded_weight_stats of 20 convs within rtol 1e-6" in out
+    assert "tools: profile_table of the card's fraclen report: 21 layers" in out
+    assert "the CPU copy's table the same text" in out
