@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --dp-cards 4     # the dp phase alone, over NCCL
-    python3 chip_smoke.py --mp-cards 4     # the tp, pp and xserve phases alone, over NCCL
+    python3 chip_smoke.py --mp-cards 4     # the tp, pp, xserve and tpqat phases alone, over NCCL
 
 Drives the port's four main paths -- ResNet-18, MobileNetV2, ResNet-50 and
 MobileNetV1 integer inference at 224x224, full width, 1000 classes -- each
@@ -14,7 +14,9 @@ calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 from the seed; the port's own QAT forward and bake; and its training path
 (Trainer, sgd_update, checkpoints, the Loader on its native and PIL paths,
 the run.py CLI, the parity harness, data parallelism over two processes);
-the multi-card inference engines (tensor- and pipeline-parallel); serving
+tensor-parallel QAT training on the rank mesh (param_shardings, the TP
+train step, the TP-trained model baked and served by TPEngine); the
+multi-card inference engines (tensor- and pipeline-parallel); serving
 across ranks (ServingEngine(mesh=), CrossHostServingEngine); and the
 offline tools:
 
@@ -137,7 +139,28 @@ offline tools:
            through init_dist; the phase's wall s.  With --dp-cards N the
            script runs this phase alone (after the build), its N ranks each
            on a card of its own over NCCL, the card init_dist picks
-  tp, pp   (after dp) MP_WORLD spawned ranks that share the card over gloo
+  tpqat    (after dp) __graft_entry__.dryrun_multichip's training half
+           and its bake: ResNet-18 from the dp phase's config at full width
+           (224 px, 1000 classes), global batch DP_BATCH, on a (data 1,
+           model MP_WORLD) mesh of MP_WORLD spawned ranks that share the card
+           over gloo, the QAT params out-channel sharded
+           (parallel.param_shardings(..., tensor_parallel=True),
+           shard_params), the state whole: one floating_wo_clip and one QAT
+           step (train.make_train_step(..., mesh=)); every rank's gathered
+           params, state and momentum bitwise alike, each step held against
+           the same step in one process on the global batch as the dp phase
+           holds its ranks (step_gaps, DP_LIMITS: fraclen EMAs equal); then
+           TPQAT_TIMED_STEPS more QAT steps timed on every rank, beside the
+           one-process step's wall; TPQAT_CALIB_STEPS calib-mode forwards on
+           the mesh, bake_plan on the gathered params, IntEngine on the card
+           and TPEngine on the mesh: every rank's logits bitwise equal to the
+           single engine's on its data row, every kernel call of its forward
+           against its plain version, its launches (counts set to 0 just
+           before it) its routing's table (IntEngine.launch_table at the
+           shard shapes); logged: collectives and bytes per step
+           (Mesh.counts), wall ms per step, peak memory.  With --mp-cards N:
+           N ranks over NCCL, a card each, on (1, N) and (2, N/2)
+  tp, pp   (after tpqat) MP_WORLD spawned ranks that share the card over gloo
            (parallel.init_dist; a pinned host buffer carries each collective):
            engine.TPEngine on a (data 1, model 2) mesh (parallel.make_mesh)
            on all four paths and engine.PPEngine at 2 stages on ResNet-18
@@ -215,8 +238,9 @@ packed layouts.
 The serve, export and train phases' numbers are logged on lines before the
 kernel table.  A kernel's `launches` there are those of the twelve forwards
 (K6's: of the flat phase); the table adds each kernel's launches while serving
-(`serve_launches`) and on the tp, pp and xserve phases' forwards, summed
-over the ranks (`tp_launches`, `pp_launches`, `xserve_launches`).
+(`serve_launches`) and on the tp, pp, xserve and tpqat phases' forwards,
+summed over the ranks (`tp_launches`, `pp_launches`, `xserve_launches`,
+`tpqat_launches`).
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -233,7 +257,10 @@ import functools
 import io
 import json
 import math
+import multiprocessing
 import os
+import random
+import socket
 import statistics
 import subprocess
 import sys
@@ -377,6 +404,12 @@ DP_LIMITS = {"floating_wo_clip": {"loss": 3e-6, "bn": 2e-5, "update_l2": 0.03, "
 # --mp-cards, MP_TIMED_PATHS timed at each of TIMED_BATCHES under TP (1, N)
 # and PP (N stages, MP_TIMED_MICRO microbatches)
 MP_WORLD, PP_MICRO, MP_TIMED_MICRO, MP_TIMEOUT = 2, 4, 8, 900.0
+# the tpqat phase: the dp phase's config, global batch and step, the QAT
+# params out-channel sharded over a (data 1, model MP_WORLD) mesh of
+# MP_WORLD ranks sharing the card over gloo (with --mp-cards N: (1, N) and
+# (2, N/2) over NCCL); TPQAT_TIMED_STEPS more QAT steps timed on every rank
+# and in one process, TPQAT_CALIB_STEPS calib forwards before the bake
+TPQAT_TIMED_STEPS, TPQAT_CALIB_STEPS = 3, 2
 MP_TP_PATHS = ("resnet18", "resnet50", "mobilenet_v2", "mobilenet_v1")
 MP_PP_PATHS = ("resnet18", "mobilenet_v2")
 MP_TIMED_PATHS = ("resnet50", "mobilenet_v2")
@@ -2439,6 +2472,53 @@ def train_phase(seed: int, card: str, device="cuda"):
 # -- dp -------------------------------------------------------------------------
 
 
+def free_port() -> int:
+    """A free localhost port below the kernel's ephemeral range: the other
+    ranks connect to rank 0's port before it listens, and a connection
+    from an ephemeral port can take that port itself (a TCP self-connect:
+    rank 0's bind then fails with EADDRINUSE)."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        first = int(f.read().split()[0])
+    for _ in range(100):
+        port = random.randrange(max(1024, first - 10000), first)
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free port below {first}")
+
+
+def spawn_ranks(target, world: int, settings: dict, what: str, timeout: float = MP_TIMEOUT):
+    """Starts target(rank, world, port, settings) in `world` spawned
+    processes, the group's address on a free localhost port.  Returns
+    wait(), which waits for them (killing the rest once one has failed,
+    or all still alive after `timeout` s), raises unless every one exited
+    0, and gives what each wrote to settings["out"]/rank<r>.pt."""
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, settings)) for r in range(world)]
+    for p in procs:
+        p.start()
+
+    def wait() -> list:
+        deadline = time.monotonic() + timeout
+        while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+               and not any(p.exitcode for p in procs)):
+            time.sleep(0.2)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        if alive or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"{what}: rank exit codes {[p.exitcode for p in procs]}")
+        return [torch.load(os.path.join(settings["out"], f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    return wait
+
+
 def dp_global_batch(seed: int, n: int, side: int, classes: int):
     """The dp phase's global batch, drawn on the host from `seed`."""
     g = torch.Generator().manual_seed(seed)
@@ -2591,9 +2671,6 @@ def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
              backend: str = "gloo") -> None:
     """The dp phase (module docstring): `world` ranks that share card 0
     over gloo, or (backend "nccl") each on a card of its own."""
-    import multiprocessing
-    import socket
-
     from f8net_tpu_torch.parallel import get_world_size, init_dist
 
     t_start = time.perf_counter()
@@ -2610,14 +2687,7 @@ def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
                            pretrained_file=os.path.join(tmp, "log", "latest_checkpoint.npz"),
                            int_op_only_file_path=os.path.join(tmp, "export")),
             backend=backend)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=dp_rank, args=(r, world, port, settings))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
+        wait = spawn_ranks(dp_rank, world, settings, "dp", DP_TIMEOUT)
         # meanwhile the same steps in this process: twice (the run-to-run
         # spread of one process on this device), the float step in float64
         # (what both float32 steps approximate), the QAT step on images one
@@ -2627,17 +2697,8 @@ def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
         refs.append(dp_steps(settings, dev, kinds=("floating_wo_clip",), dtype=torch.float64))
         refs.append(dp_steps(settings, dev, kinds=("qat",), nudge=True))
         t_ref = time.perf_counter() - t0
-        for p in procs:
-            p.join(DP_TIMEOUT)
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-        if alive or any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"dp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = wait()
         t_ranks = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                 for r in range(world)]
         cards = [r["card"] for r in ranks]
         if dev.type == "cuda" and cards != ([0] * world if backend == "gloo" else
                                             list(range(world))):
@@ -2711,11 +2772,8 @@ def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
             f"start, the one-process steps {t_ref:.1f} s")
 
         # the CLI at world size 1 through init_dist: NCCL on a card
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
         backend = "nccl" if dev.type == "cuda" else "gloo"
-        init_dist(f"tcp://127.0.0.1:{port}", 0, 1, backend=backend)
+        init_dist(f"tcp://127.0.0.1:{free_port()}", 0, 1, backend=backend)
         try:
             t0 = time.perf_counter()
             one = train_yaml(tmp, "dp_one", TRAIN_CONFIG, log_dir=os.path.join(tmp, "one"))
@@ -2729,6 +2787,237 @@ def dp_phase(seed: int, card: str, device="cuda", world: int = DP_WORLD,
         finally:
             torch.distributed.destroy_process_group()
     log(f"dp phase: {time.perf_counter() - t_start:.1f} s wall ({card})")
+
+# -- tpqat ---------------------------------------------------------------------
+
+
+def timed_steps(step, params, state, opt, x, y, n: int, barrier=None):
+    """`n` more train steps on (x, y), each timed alone on the wall clock
+    (the card synchronised around it; with `barrier`, every rank starting
+    together); (params, state, opt, [ms per step])."""
+    walls = []
+    for _ in range(n):
+        if x.device.type == "cuda":
+            torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        params, state, opt, _ = step(params, state, opt, x, y, DP_LR)
+        if x.device.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return params, state, opt, walls
+
+
+def tpqat_mesh(settings: dict, mesh, device) -> dict:
+    """One mesh of the tpqat phase on this rank (module docstring): the
+    floating_wo_clip and QAT steps with params out-channel sharded
+    (param_shardings, shard_params), gathered whole after each (digests
+    on every rank, host copies on global rank 0), the mesh's collectives
+    per step; settings["timed"] more QAT steps timed; the BN calibration
+    (settings["calib"] calib-mode forwards on the mesh), bake_plan on the
+    gathered params, IntEngine on the card and TPEngine on the mesh, every
+    kernel call of the TP forward against its plain version, its logits
+    against the single engine's on this data row."""
+    from f8net_tpu_torch.engine import TPEngine
+    from f8net_tpu_torch.parallel import gather_params, param_shardings, shard_params
+    from f8net_tpu_torch.parallel.mesh import shard_batch
+
+    cfg, tcfg, _ = from_flags(load_yaml(settings["yaml"]), settings["batch"])
+    images, labels = dp_global_batch(settings["seed"] + 1, settings["batch"], tcfg.image_size,
+                                     tcfg.num_classes)
+    x, y = shard_batch(mesh, images).to(device), shard_batch(mesh, labels).to(device)
+    lead = torch.distributed.get_rank() == 0
+    out = {}
+    for kind, kcfg in (("floating_wo_clip", cfg.replace(floating_wo_clip=True)), ("qat", cfg)):
+        model = get_model("resnet18", kcfg, num_classes=tcfg.num_classes,
+                          image_size=tcfg.image_size)
+        params, state = model.init(torch.Generator().manual_seed(settings["seed"]), device=device)
+        specs = param_shardings(model.graph, params, mesh, tensor_parallel=True)
+        params = shard_params(params, specs, mesh)
+        opt = train_mod.sgd_init(params)
+        step = train_loop.make_train_step(model, kcfg, tcfg, mesh=mesh)
+        mesh.reset_counts()
+        params, state, opt, m = step(params, state, opt, x, y, DP_LR)
+        counts = dict(mesh.counts)
+        whole = (gather_params(params, specs, mesh), state,
+                 gather_params(opt.momentum, specs, mesh))
+        out[kind] = dict(digests=[tree_digest(t) for t in whole], counts=counts,
+                         metrics={k: float(v) for k, v in m.items()},
+                         trees=[host_tree(t) for t in whole] if lead else None,
+                         cut=sum(v["w"] is not None for v in specs.values()))
+    # the QAT model trains on: its steps timed, then calibrated and baked
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params, state, opt, walls = timed_steps(step, params, state, opt, x, y, settings["timed"],
+                                            torch.distributed.barrier)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    icfg = cfg.replace(quant_bias=True, quant_avgpool=True, pool_fusing=True)
+    imodel = get_model("resnet18", icfg, num_classes=tcfg.num_classes, image_size=tcfg.image_size)
+    calib = train_loop.make_eval_step(imodel, icfg, tcfg, mode="calib", mesh=mesh)
+    state = reset_bn_for_calib(state)
+    for _ in range(settings["calib"]):
+        state, _ = calib(params, state, x, y)
+    plan, int_params = bake_plan(imodel, gather_params(params, specs, mesh), state)
+    single = IntEngine(imodel, plan, int_params, device=device)
+    xi = single.condition_input(images[:settings["engine_batch"]].to(device))
+    want = single(xi).cpu()
+    tp = TPEngine(imodel, plan, {n: {k: v.cpu() for k, v in d.items()} for n, d in int_params.items()},
+                  mesh, device=device)
+    mesh.reset_counts()
+    served = checked_forward(tp, shard_batch(mesh, xi))
+    served.update(table=tp.launch_table(), collectives=dict(mesh.counts),
+                  equal=torch.equal(served["logits"], shard_batch(mesh, want)),
+                  distinct=len({tuple(r) for r in want.tolist()}), rows=len(want),
+                  plan=[(p.name, p.input_fl, p.weight_fl) for p in plan.layers])
+    return dict(steps=out, walls=walls, peak_gib=peak, served=served)
+
+
+def tpqat_rank(rank: int, world: int, port: int, settings: dict) -> None:
+    """One rank of the tpqat phase, in a process of its own (spawned):
+    joins the group over settings["backend"] (gloo: on card 0, which the
+    ranks share; NCCL: on the card init_dist picks), builds every mesh of
+    settings["meshes"] and runs tpqat_mesh on each; writes what it saw to
+    settings["out"]/rank<r>.pt."""
+    from f8net_tpu_torch.parallel import init_dist, make_mesh
+
+    device = torch.device(settings["device"])
+    if device.type == "cuda" and settings["backend"] == "gloo":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(settings["threads"])
+    init_dist(f"tcp://127.0.0.1:{port}", rank, world, backend=settings["backend"])
+    try:
+        meshes = [make_mesh(d, m, device=device) for d, m in settings["meshes"]]
+        card = torch.cuda.current_device() if device.type == "cuda" else None
+        res = {"card": card, "meshes": {}}
+        for shape, mesh in zip(settings["meshes"], meshes):
+            res["meshes"][tuple(shape)] = tpqat_mesh(settings, mesh, mesh.device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        torch.save(res, os.path.join(settings["out"], f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def one_process_qat_walls(settings: dict, device, n: int):
+    """The QAT step of the tpqat phase in this process on the global
+    batch: one step, then `n` timed; ([ms per step], peak GiB of the
+    timed steps, or None on the CPU)."""
+    cfg, tcfg, _ = from_flags(load_yaml(settings["yaml"]), settings["batch"])
+    images, labels = dp_global_batch(settings["seed"] + 1, settings["batch"], tcfg.image_size,
+                                     tcfg.num_classes)
+    model = get_model("resnet18", cfg, num_classes=tcfg.num_classes, image_size=tcfg.image_size)
+    params, state = model.init(torch.Generator().manual_seed(settings["seed"]), device=device)
+    step = train_loop.make_train_step(model, cfg, tcfg)
+    x, y = images.to(device), labels.to(device)
+    params, state, opt, _ = step(params, state, train_mod.sgd_init(params), x, y, DP_LR)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    walls = timed_steps(step, params, state, opt, x, y, n)[3]
+    return walls, (torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda"
+                   else None)
+
+
+def tpqat_phase(seed: int, card: str, device="cuda", world: int = MP_WORLD,
+                backend: str = "gloo", meshes=None) -> dict:
+    """The tpqat phase (module docstring): `world` ranks that share card 0
+    over gloo on a (1, world) mesh, or (backend "nccl") each on a card of
+    its own on every mesh of `meshes`.  Returns the TP forwards' launches
+    by kernel, summed over ranks and meshes."""
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    meshes = meshes or [(1, world)]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks read everything from here (spawned, they see this
+        # module's defaults, not a caller's settings)
+        settings = dict(seed=seed, batch=DP_BATCH, device=str(dev), out=tmp, backend=backend,
+                        threads=torch.get_num_threads(), meshes=meshes,
+                        yaml=train_yaml(tmp, "tpqat", TRAIN_CONFIG), timed=TPQAT_TIMED_STEPS,
+                        calib=TPQAT_CALIB_STEPS, engine_batch=min(BATCH, DP_BATCH))
+        # the references first, in this process on the global batch, as the
+        # dp phase holds its ranks: the float step in float64, the QAT step
+        # in float32, twice (run to run); then the one-process QAT step timed
+        t0 = time.perf_counter()
+        refs = [dp_steps(settings, dev) for _ in range(2)]
+        refs.append(dp_steps(settings, dev, kinds=("floating_wo_clip",), dtype=torch.float64))
+        one_walls, one_peak = one_process_qat_walls(settings, dev, TPQAT_TIMED_STEPS)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(tpqat_rank, world, settings, "tpqat")()
+        t_ranks = time.perf_counter() - t0
+        cfg, tcfg, _ = from_flags(load_yaml(settings["yaml"]), DP_BATCH)
+    cards = [r["card"] for r in ranks]
+    if dev.type == "cuda" and cards != ([0] * world if backend == "gloo" else list(range(world))):
+        raise AssertionError(f"tpqat: the ranks ran on cards {cards}")
+    how = ("sharing the card over gloo" if backend == "gloo"
+           else f"on cards {cards} over {backend}")
+    init = get_model("resnet18", cfg, num_classes=tcfg.num_classes,
+                     image_size=tcfg.image_size).init(torch.Generator().manual_seed(seed),
+                                                      device="cpu")[0]
+    text = lambda g: ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                               for k, v in g.items())
+    total = {name: 0 for name in KERNELS}
+    for shape in meshes:
+        shape = tuple(shape)
+        label = f"tpqat (data, model) = {shape}, {world} ranks {how}"
+        res = [rk["meshes"][shape] for rk in ranks]
+        for kind in ("floating_wo_clip", "qat"):
+            a = res[0]["steps"][kind]
+            for r, other in enumerate(res[1:], 1):
+                b = other["steps"][kind]
+                if b["digests"] != a["digests"] or b["metrics"] != a["metrics"]:
+                    raise AssertionError(f"{label} {kind}: rank {r}'s gathered params, state, "
+                                         f"momentum or metrics differ from rank 0's")
+            if kind == "floating_wo_clip":  # held against the float64 step
+                ref, against = refs[2][kind], "one process in float64"
+            else:  # the chaotic QAT step: against one process in float32
+                ref, against = refs[0][kind], "one process"
+            gaps = step_gaps((*a["trees"], a["metrics"]), ref, init)
+            limits = DP_LIMITS[kind]
+            over = {k: gaps[k] for k in limits if gaps[k] > limits[k]}
+            counts = a["counts"]
+            log(f"{label}: {kind} step, {tcfg.image_size} px, global batch {DP_BATCH}, "
+                f"{a['cut']} of {len(init)} layers cut over the model line: every rank's gathered "
+                f"params, state and momentum bitwise equal; against {against}: {text(gaps)}; "
+                f"one process against itself (run to run): "
+                f"{text(step_gaps(refs[1][kind], refs[0][kind], init))}; collectives per step "
+                f"(rank 0, Mesh.counts): {counts} ({card})")
+            if gaps["ema_differ"] or gaps["n"] != (DP_BATCH, DP_BATCH) or over:
+                raise AssertionError(f"{label} {kind}: against {against} {gaps}; limits {limits}")
+        one = statistics.median(one_walls)
+        for r, rr in enumerate(res):
+            peak = "" if rr["peak_gib"] is None else f", peak memory {rr['peak_gib']:.3f} GiB"
+            log(f"{label}: rank {r} QAT step wall ms {' '.join(f'{v:.1f}' for v in rr['walls'])} "
+                f"(median {statistics.median(rr['walls']):.1f}) against one process's "
+                f"{' '.join(f'{v:.1f}' for v in one_walls)} (median {one:.1f}){peak}; "
+                f"bytes per step {res[r]['steps']['qat']['counts']} ({card})")
+        for r, rr in enumerate(res):
+            sv = rr["served"]
+            table = {name: sv["table"].get(name, 0) for name in KERNELS}
+            if not sv["equal"]:
+                raise AssertionError(f"{label} rank {r}: TPEngine's logits differ from "
+                                     f"IntEngine's on the TP-trained bake")
+            if sv["calls"] != table or (dev.type == "cuda" and sv["launches"] != table):
+                raise AssertionError(f"{label} rank {r}: calls {sv['calls']}, launches "
+                                     f"{sv['launches']}, its routing's table {table}")
+            if sv["plan"] != res[0]["served"]["plan"]:
+                raise AssertionError(f"{label} rank {r}: baked another plan than rank 0")
+            for name in KERNELS:
+                total[name] += sv["launches"][name]
+        sv = res[0]["served"]
+        log(f"{label}: {TPQAT_TIMED_STEPS} more QAT steps, {TPQAT_CALIB_STEPS} calib forwards on "
+            f"the mesh, bake_plan on the gathered params (the same plan on every rank); "
+            f"TPEngine on the mesh bitwise equal to IntEngine on one card on every rank "
+            f"({sv['distinct']} distinct logit rows of {sv['rows']}); rank 0: {sv['n_calls']} "
+            f"kernel calls equal to their plain versions, launches "
+            f"{dict((k, v) for k, v in sv['launches'].items() if v)} as its routing's table; "
+            f"collectives per forward {sv['collectives']}")
+    peak = "" if one_peak is None else f", one process's peak memory {one_peak:.3f} GiB"
+    log(f"tpqat phase: {time.perf_counter() - t_start:.1f} s wall (the one-process references "
+        f"{t_ref:.1f} s, the ranks {t_ranks:.1f} s){peak} ({card})")
+    return total
 
 # -- tp and pp ----------------------------------------------------------------
 
@@ -2943,9 +3232,6 @@ def mp_phase(forwards, images, card: str, seed: int, device="cuda", world: int =
     card 0 over gloo, or (backend "nccl") each on a card of its own.
     Returns {"tp": launches, "pp": launches} by kernel, summed over ranks
     and forwards."""
-    import multiprocessing
-    import socket
-
     t_start = time.perf_counter()
     dev = torch.device(device)
     tp_meshes = [(1, world)] + ([(2, world // 2)] if world >= 4 else [])
@@ -2957,9 +3243,6 @@ def mp_phase(forwards, images, card: str, seed: int, device="cuda", world: int =
         settings = dict(device=str(dev), backend=backend, out=tmp, payload=payload, seed=seed,
                         threads=torch.get_num_threads(), tp_meshes=tp_meshes, pp_stages=pp_stages,
                         tp_paths=MP_TP_PATHS, pp_paths=MP_PP_PATHS)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
         single = {}
         if timed:  # the single-card engine first, on card 0 alone
             data = torch.load(payload, weights_only=False)
@@ -2969,20 +3252,7 @@ def mp_phase(forwards, images, card: str, seed: int, device="cuda", world: int =
                     xb = xb.to(dev)
                     wall = time_ms(lambda: eng(xb), reps=5, rounds=3)
                     single[(path, b)] = (wall, device_ms(lambda: eng(xb), reps=3)[0])
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=mp_rank, args=(r, world, port, settings)) for r in range(world)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(MP_TIMEOUT)
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-        if alive or any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"tp/pp: rank exit codes {[p.exitcode for p in procs]}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                 for r in range(world)]
+        ranks = spawn_ranks(mp_rank, world, settings, "tp/pp")()
         data = torch.load(payload, weights_only=False)
     cards = [r["card"] for r in ranks]
     if dev.type == "cuda" and cards != ([0] * world if backend == "gloo" else list(range(world))):
@@ -3253,9 +3523,6 @@ def xserve_phase(forwards, card: str, seed: int, device="cuda", world: int = MP_
     """The xserve phase (module docstring): `world` ranks sharing card 0
     over gloo, or (backend "nccl") each on a card of its own.  Returns the
     launches by kernel, summed over ranks and forwards."""
-    import multiprocessing
-    import socket
-
     t_start = time.perf_counter()
     dev = torch.device(device)
     rungs = (None, "bf16_boundary")
@@ -3282,24 +3549,7 @@ def xserve_phase(forwards, card: str, seed: int, device="cuda", world: int = MP_
                     for n, d in base.params.items()})), payload)
         settings = dict(device=str(dev), backend=backend, out=tmp, payload=payload, seed=seed,
                         threads=torch.get_num_threads(), cases=cases)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=xserve_rank, args=(r, world, port, settings))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(MP_TIMEOUT)
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join()
-        if alive or any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"xserve: rank exit codes {[p.exitcode for p in procs]}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                 for r in range(world)]
+        ranks = spawn_ranks(xserve_rank, world, settings, "xserve")()
     how = "sharing the card over gloo" if backend == "gloo" else f"a card each over {backend}"
     total = {name: 0 for name in KERNELS}
     for key in cases:
@@ -3355,8 +3605,8 @@ def main(argv=None) -> int:
                     help="run the dp phase alone, its ranks one per card over NCCL on this many "
                          "cards (at least 2)")
     ap.add_argument("--mp-cards", type=int, default=0,
-                    help="run the tp and pp phases alone, their ranks one per card over NCCL on "
-                         "this many cards (at least 2, even), with their timings")
+                    help="run the tp, pp, xserve and tpqat phases alone, their ranks one per card "
+                         "over NCCL on this many cards (at least 2, even), with their timings")
     args = ap.parse_args(argv)
     t_script = time.time()
     if not torch.cuda.is_available():
@@ -3401,6 +3651,7 @@ def main(argv=None) -> int:
         engines = mp_engines(args.seed, images, device)
         mp_phase(engines, images, card, args.seed, device, world=n, backend="nccl", timed=True)
         xserve_phase(engines, card, args.seed, device, world=n, backend="nccl")
+        tpqat_phase(args.seed, card, device, world=n, backend="nccl", meshes=[(1, n), (2, n // 2)])
         log(f"chip_smoke --mp-cards {n}: {time.time() - t_script:.1f} s wall ({card})")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3465,6 +3716,7 @@ def main(argv=None) -> int:
         f"{train_launches}; all {len(train_calls)} kernel calls of chip_smoke's engine on the "
         f"trained checkpoint equal to their plain versions ({card})")
     dp_phase(args.seed, card, device)
+    tpqat_launches = tpqat_phase(args.seed, card, device)
     mp_launches = mp_phase(forwards, images, card, args.seed, device)
     xserve_launches = xserve_phase(forwards, card, args.seed, device)
     kernels = []
@@ -3480,7 +3732,7 @@ def main(argv=None) -> int:
             bound_by="bytes" if row["t_bytes"] > row["t_ops"] else "operations",
             library_ms=row["library_ms"], **extra_keys, serve_launches=serve_counts[name],
             tp_launches=mp_launches["tp"][name], pp_launches=mp_launches["pp"][name],
-            xserve_launches=xserve_launches[name],
+            xserve_launches=xserve_launches[name], tpqat_launches=tpqat_launches[name],
             by_path=row["by_path"],
         ))
     log(f"chip_smoke: {time.time() - t_script:.1f} s wall ({card})")

@@ -24,12 +24,15 @@ from ..utils.device import resolve_device
 class Model:
     """A built model: immutable graph plus the walk order the engine uses.
 
-    forward(params, state, x, mode='eval', cfg=None, group=None) -> (logits,
-    new state): mode is 'train', 'eval' or 'calib'; cfg defaults to the
-    build's and may be overridden per call (int_infer for the
-    integer-simulation eval) as long as its structural knobs (normalize,
-    format_type, pool_fusing) match the build; group: the process group
-    whose global batch the training statistics span (data parallelism)."""
+    forward(params, state, x, mode='eval', cfg=None, group=None, mesh=None)
+    -> (logits, new state): mode is 'train', 'eval' or 'calib'; cfg
+    defaults to the build's and may be overridden per call (int_infer for
+    the integer-simulation eval) as long as its structural knobs
+    (normalize, format_type, pool_fusing) match the build; group: the
+    process group whose global batch the training statistics span (data
+    parallelism); mesh: a ('data', 'model') mesh instead, params this
+    rank's slices of `parallel.mesh.param_shardings(..., tensor_parallel=
+    True)` and state whole (tensor parallelism, nn/runner.py)."""
 
     name: str
     graph: LayerGraph
@@ -60,6 +63,6 @@ class Model:
                 state[lname] = init_linear_state(self.cfg, spec, device)
         return params, state
 
-    def apply(self, params, state, x, mode: str = "eval", cfg=None, group=None):
+    def apply(self, params, state, x, mode: str = "eval", cfg=None, group=None, mesh=None):
         """QAT forward of NHWC float images x -> (logits, new state)."""
-        return self.forward(params, state, x, mode, cfg or self.cfg, group)
+        return self.forward(params, state, x, mode, cfg or self.cfg, group, mesh)

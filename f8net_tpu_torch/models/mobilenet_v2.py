@@ -102,9 +102,9 @@ def build_mobilenet_v2(cfg, num_classes: int = 1000, pool_kernel: int = 7) -> Mo
 
     graph = LayerGraph(specs)
 
-    def forward(params, state, x, mode="eval", run_cfg=None, group=None):
+    def forward(params, state, x, mode="eval", run_cfg=None, group=None, mesh=None):
         c = run_cfg or cfg
-        r = Runner(graph, c, params, state, mode, group)
+        r = Runner(graph, c, params, state, mode, group, mesh)
         a = r.relu(r.conv("head", Act(x)))
         for meta in blocks:
             if meta.residual and c.qat_boundary == "int8" and not r.int_sim:

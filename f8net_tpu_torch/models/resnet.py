@@ -126,9 +126,9 @@ def build_resnet(
 
     graph = LayerGraph(specs)
 
-    def forward(params, state, x, mode="eval", run_cfg=None, group=None):
+    def forward(params, state, x, mode="eval", run_cfg=None, group=None, mesh=None):
         c = run_cfg or cfg
-        r = Runner(graph, c, params, state, mode, group)
+        r = Runner(graph, c, params, state, mode, group, mesh)
         a = r.relu(r.conv("head", Act(x)))
         # quant_maxpool: the reference's zero-padding pool, the same values on
         # the non-negative post-ReLU input

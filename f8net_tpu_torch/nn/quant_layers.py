@@ -28,6 +28,14 @@ mean, variance and count -- as in the JAX package's jitted step over
 Mesh('data'), where GSPMD inserts the collectives.  The gradient flows
 through those all-reduces (`parallel.AllReduceSum`).  Weight statistics
 need none: every process holds the same weights.
+
+Tensor parallelism (`parallel/tp_train.py`): given a layer's Cut (`tp`),
+its params are this rank's out-channel slice; the layer computes only
+those channels -- both convs, the BN statistics, the output -- from its
+whole input through f, reads its weight statistics over the whole weight
+(the model line), all-gathers its BN running-statistic updates, and its
+output leaves through g, whole.  Given none (or `WHOLE`) it computes
+everything, as above.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from ..ops.fxp import (
     fix_quant, fraclen_gridsearch, global_moments, metric2fraclen, metric_fn, sqrt_rn,
     ste_quant,
 )
+from ..parallel.tp_train import WHOLE
 from ..utils.device import float32_exact
 from .pool import avgpool_shift_for
 from .spec import ConvBNSpec, LayerGraph, LinearSpec
@@ -235,14 +244,23 @@ def _weight_metric_axes(cfg):
     return (0, 1, 2) if cfg.format_type == "per_channel" else (0, 1, 2, 3)
 
 
-def _conv_weight_rescale(cfg, spec: ConvBNSpec, w):
-    """Forward weight standardization before the fold (detached std)."""
+def _std(w, group=None):
+    """The sample standard deviation of the whole (detached) weight; with
+    a group, of the weight whose slices its ranks hold."""
+    if group is None:
+        return torch.std(w.detach(), correction=1)
+    return metric_fn("std", range(w.ndim), group)(w).reshape(())
+
+
+def _conv_weight_rescale(cfg, spec: ConvBNSpec, w, group=None):
+    """Forward weight standardization before the fold (detached std, of
+    the whole weight)."""
     if not cfg.rescale_forward_conv:
         return w
     kh, kw = spec.kernel
-    sd = torch.std(w.detach(), correction=1)
+    sd = _std(w, group)
     if cfg.rescale_type == "stddev":
-        scale = torch.std(w.detach(), correction=1) / sd
+        scale = _std(w, group) / sd
     elif cfg.rescale_type == "constant":
         scale = (1.0 / math.sqrt(spec.out_ch * kh * kw)) / sd
     else:
@@ -274,10 +292,11 @@ def _merged_view(state, updates):
 
 
 def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: str = "eval",
-                  group=None):
+                  group=None, tp=WHOLE):
     """One fused quantized ConvBN forward (`conv_bn_apply`,
     f8net_tpu/nn/quant_layers.py:346-482); mode 'train', 'eval' or 'calib';
-    `group`: the process group whose global batch the statistics span.
+    `group`: the process group whose global batch the statistics span;
+    `tp`: the layer's Cut on a model line (module docstring) or WHOLE.
     Returns (Act, state updates).  In training, the BN statistics come from
     a second conv on the clip-scaled input, and the output conv uses them
     folded into the quantized weights; fix_scaling of this layer and of the
@@ -299,8 +318,13 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
     fs_self = fix_scaling(graph, cfg, name, params, live)
     following = graph.following_of(name)
     fs_next = None if following is None else fix_scaling(graph, cfg, following, params, live)
+    if fs_next is None:
+        x_val, fs_self = tp.copy(x_val, fs_self)
+    else:  # fs_next aligned to O: this rank's channels
+        x_val, fs_self, fs_next = tp.copy(x_val, fs_self, fs_next)
+        fs_next = tp.local(fs_next)
 
-    w = _conv_weight_rescale(cfg, spec, p["w"]) * spec.avgpool_scale
+    w = _conv_weight_rescale(cfg, spec, p["w"], tp.group) * spec.avgpool_scale
 
     # -- BatchNorm statistics
     if training:
@@ -308,7 +332,7 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
         if group is None:
             bn_mean = torch.mean(y0, (0, 1, 2))
             var_b = torch.var(y0, (0, 1, 2), correction=0)
-            n = y0.numel() / spec.out_ch
+            n = y0.numel() / y0.shape[-1]  # rows per channel
             var_u = var_b * (n / max(n - 1.0, 1.0))
         else:
             mean64, var64, n = global_moments(y0, (0, 1, 2), group)
@@ -316,23 +340,27 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
             var_u = var_b * (n / torch.clamp(n - 1.0, min=1.0)).to(y0.dtype)
         bn_std = sqrt_rn(var_b + eps)
         st = state[name]
+        st_mean, st_var = tp.local(st["bn_mean"]), tp.local(st["bn_var"])
         if mode == "calib":
             cnt = st["bn_count"] + 1.0
             upd = {
-                "bn_mean": st["bn_mean"] + (bn_mean - st["bn_mean"]) / cnt,
-                "bn_var": st["bn_var"] + (var_u - st["bn_var"]) / cnt,
+                "bn_mean": st_mean + (bn_mean - st_mean) / cnt,
+                "bn_var": st_var + (var_u - st_var) / cnt,
                 "bn_count": cnt,
             }
         else:
             m = cfg.bn_momentum
             upd = {
-                "bn_mean": (1 - m) * st["bn_mean"] + m * bn_mean,
-                "bn_var": (1 - m) * st["bn_var"] + m * var_u,
+                "bn_mean": (1 - m) * st_mean + m * bn_mean,
+                "bn_var": (1 - m) * st_var + m * var_u,
             }
+        if tp is not WHOLE:  # the whole running statistics on every rank
+            upd["bn_mean"], upd["bn_var"] = tp.gather_state(
+                torch.stack([upd["bn_mean"], upd["bn_var"]])).unbind(0)
         updates.setdefault(name, {}).update(upd)
     else:
-        bn_mean = state[name]["bn_mean"]
-        bn_std = sqrt_rn(state[name]["bn_var"] + eps)
+        bn_mean = tp.local(state[name]["bn_mean"])
+        bn_std = sqrt_rn(tp.local(state[name]["bn_var"]) + eps)
 
     bn_scale = gamma / bn_std
 
@@ -341,7 +369,7 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
             y = bn_scale * (y0 - bn_mean) + beta
         else:
             y = conv2d_nhwc(x_val, w * bn_scale, spec) + (beta - bn_scale * bn_mean)
-        return Act(y, None), updates
+        return Act(tp.gather(y, 3), None), updates
 
     # -- fold, quantize weight, bias
     w_eff = _fold_scales(spec, w, bn_scale, fs_self, fs_next)
@@ -349,11 +377,11 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
     if cfg.floating_model:
         w_fl = torch.full((1,), float(w_fl_default), device=w.device)
     elif cfg.format_grid_search:
-        w_fl = fraclen_gridsearch(w_eff, w_wl, 3, True).reshape(1)
+        w_fl = fraclen_gridsearch(w_eff, w_wl, 3, True, tp.group).reshape(1)
     elif cfg.format_from_metric:
         if w_wl != 8:
             raise NotImplementedError("word lengths other than 8 bit")
-        m = metric_fn(cfg.metric, _weight_metric_axes(cfg))(w_eff)
+        m = metric_fn(cfg.metric, _weight_metric_axes(cfg), _weight_group(cfg, tp))(w_eff)
         w_fl = torch.clamp(metric2fraclen(m, cfg.metric, 1.0, True), 0.0, float(w_wl - 1))
         w_fl = w_fl.reshape(-1)
     else:
@@ -377,32 +405,40 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
         y = conv2d_nhwc(int_x, int_w, spec) + int_b
         y = torch.clamp(y, -INT32_BOUND, INT32_BOUND)
         out_fl = (w_fl + in_fl).reshape(-1)[:1]
-        return Act(y / torch.exp2(out_fl), out_fl), updates
+        return Act(tp.gather(y / torch.exp2(out_fl), 3), out_fl), updates
 
-    return Act(conv2d_nhwc(x_val, w_q, spec) + bias, None), updates
+    return Act(tp.gather(conv2d_nhwc(x_val, w_q, spec) + bias, 3), None), updates
+
+
+def _weight_group(cfg, tp):
+    """Where a weight's fraclen metric reduces: per layer over the whole
+    weight (the model line of a cut layer); per channel within each
+    out-channel, which a rank holds whole."""
+    return None if cfg.format_type == "per_channel" else tp.group
 
 
 # -- Linear -----------------------------------------------------------------------
 
 
-def _linear_scale(cfg, spec: LinearSpec, w_ref, w_q):
-    """The forward standardization scale of a linear weight (detached)."""
-    sd = torch.std(w_q.detach(), correction=1)
+def _linear_scale(cfg, spec: LinearSpec, w_ref, w_q, group=None):
+    """The forward standardization scale of a linear weight (detached, of
+    the whole weight)."""
+    sd = _std(w_q, group)
     if cfg.rescale_type == "stddev":
-        return torch.std(w_ref.detach(), correction=1) / sd
+        return _std(w_ref, group) / sd
     if cfg.rescale_type == "constant":
         return (1.0 / math.sqrt(spec.out_features)) / sd
     raise NotImplementedError(cfg.rescale_type)
 
 
 def linear_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: str = "eval",
-                 group=None):
+                 group=None, tp=WHOLE):
     """Quantized fully-connected forward (`linear_apply`,
     f8net_tpu/nn/quant_layers.py:490-583).  The raw weight is quantized
     first, then standardized (training) or the scale divided into the bias
     (eval); the clip scale multiplies the quantized input in training and
     is folded into the bias at eval.  BN calibration leaves it in eval.
-    `group` as in conv_bn_apply."""
+    `group` and `tp` as in conv_bn_apply."""
     spec = graph[name]
     if not isinstance(spec, LinearSpec):
         raise TypeError(f"{name} is not a Linear layer")
@@ -412,41 +448,43 @@ def linear_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: 
 
     x_val, in_fl, updates = _quantize_input(graph, cfg, name, state, x, training, group)
     fs_self = fix_scaling(graph, cfg, name, params, _merged_view(state, updates))
+    x_val, fs_self = tp.copy(x_val, fs_self)
 
     rescale = cfg.rescale_forward
     if cfg.floating_wo_clip:
         w = p["w"]
         if rescale:
-            w = w * _linear_scale(cfg, spec, w, w)
+            w = w * _linear_scale(cfg, spec, w, w, tp.group)
         y = matmul_f32(x_val, w)
         if "bias" in p:
             y = y + p["bias"]
-        return Act(y, None), updates
+        return Act(tp.gather(y, 1), None), updates
 
     w = p["w"]
     w_wl, w_fl_default = graph.weight_format(name, cfg)
     if cfg.floating_model:
         w_fl = torch.full((1,), float(w_fl_default), device=w.device)
     elif cfg.format_grid_search:
-        w_fl = fraclen_gridsearch(w, w_wl, 1, True).reshape(1)
+        w_fl = fraclen_gridsearch(w, w_wl, 1, True, tp.group).reshape(1)
     elif cfg.format_from_metric:
         if w_wl != 8:
             raise NotImplementedError("word lengths other than 8 bit")
         axes = (0,) if cfg.format_type == "per_channel" else (0, 1)
-        m = metric_fn(cfg.metric, axes)(w)
+        m = metric_fn(cfg.metric, axes, _weight_group(cfg, tp))(w)
         w_fl = torch.clamp(metric2fraclen(m, cfg.metric, 1.0, True), 0.0, float(w_wl - 1))
         w_fl = w_fl.reshape(-1)
     else:
         raise NotImplementedError("need format_from_metric or format_grid_search")
     w_q = ste_quant(w, w_fl, w_wl, 1, True, cfg.floating_model)
-    ws = _linear_scale(cfg, spec, p["w"], w_q) if rescale else torch.tensor(1.0, device=w.device)
+    ws = (_linear_scale(cfg, spec, p["w"], w_q, tp.group) if rescale
+          else torch.tensor(1.0, device=w.device))
 
     has_bias = "bias" in p
     if training:
         y = matmul_f32(x_val * fs_self, w_q * ws)
         if has_bias:
             y = y + p["bias"]
-        return Act(y, None), updates
+        return Act(tp.gather(y, 1), None), updates
 
     bias = None
     if has_bias:
@@ -463,12 +501,12 @@ def linear_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode: 
         y = torch.clamp(y, -INT32_BOUND, INT32_BOUND)
         # logits have no downstream fraclen consumer: a per-channel w_fl
         # broadcasts over (N, out) as well as a per-layer one
-        return Act(y / torch.exp2(w_fl + in_fl), None), updates
+        return Act(tp.gather(y / torch.exp2(w_fl + in_fl), 1), None), updates
 
     y = matmul_f32(x_val, w_q)
     if bias is not None:
         y = y + bias
-    return Act(y, None), updates
+    return Act(tp.gather(y, 1), None), updates
 
 
 # -- pools and residual adds ------------------------------------------------------

@@ -13,16 +13,25 @@ from typing import Dict
 
 import torch.nn.functional as F
 
+from ..parallel.tp_train import TensorParallel, data_line
 from .quant_layers import Act, _quantize_input, as_act, conv_bn_apply, linear_apply
 
 
 class Runner:
     """`group`: the process group whose global batch the training
-    forward's statistics span (None: this process's batch)."""
+    forward's statistics span (None: this process's batch).  `mesh`: a
+    ('data', 'model') mesh instead (parallel.mesh) -- the statistics span
+    its data line, and on a model line of more than one rank the layers
+    that the layout cuts run tensor-parallel on this rank's param slices
+    (parallel/tp_train.py); on a model axis of one rank the forward is the
+    data-parallel one over the data line."""
 
-    def __init__(self, graph, cfg, params, state, mode: str = "eval", group=None):
+    def __init__(self, graph, cfg, params, state, mode: str = "eval", group=None, mesh=None):
+        if mesh is not None and group is not None:
+            raise ValueError("a forward takes a group or a mesh, not both")
         self.graph = graph
-        self.group = group
+        self.group = data_line(mesh) if mesh is not None else group
+        self.tp = TensorParallel(graph, mesh)
         self.cfg = cfg
         self.params = params
         self.mode = mode
@@ -36,13 +45,13 @@ class Runner:
 
     def conv(self, name: str, act) -> Act:
         y, upd = conv_bn_apply(self.graph, self.cfg, name, self.params, self.state, act, self.mode,
-                               self.group)
+                               self.group, self.tp.of(name))
         self._merge(upd)
         return y
 
     def linear(self, name: str, act) -> Act:
         y, upd = linear_apply(self.graph, self.cfg, name, self.params, self.state, act, self.mode,
-                              self.group)
+                              self.group, self.tp.of(name))
         self._merge(upd)
         return y
 

@@ -1,5 +1,7 @@
 """Multi-process runtime on torch.distributed: data-parallel training
-(dist), the rank mesh (mesh) and tensor-parallel matmuls (tp_overlap)."""
+(dist), the rank mesh and the params' tensor-parallel layout (mesh),
+tensor-parallel QAT training (tp_train) and tensor-parallel matmuls
+(tp_overlap)."""
 
 from .dist import (
     AllReduceSum,
@@ -17,4 +19,13 @@ from .dist import (
     master_only_print,
     shard_batch,
 )
-from .mesh import Mesh, make_mesh, replicate
+from .mesh import (
+    Mesh,
+    batch_sharding,
+    gather_params,
+    int_param_shardings,
+    make_mesh,
+    param_shardings,
+    replicate,
+    shard_params,
+)

@@ -98,7 +98,11 @@ def barrier(group=None) -> None:
 
 def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sums `t` over the group's processes, in place (every process gets
-    the same bits); returns it."""
+    the same bits); returns it.  `group` may be a line of a mesh
+    (`parallel.mesh.MeshLine`), whose mesh then makes and counts the
+    collective."""
+    if hasattr(group, "all_reduce"):
+        return group.all_reduce(t)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 

@@ -1,5 +1,5 @@
-"""A grid of ranks over torch.distributed (the port of
-`f8net_tpu/parallel/mesh.py:25-53`).
+"""A grid of ranks over torch.distributed and the tensor-parallel layout
+of the QAT params (the port of `f8net_tpu/parallel/mesh.py`).
 
 The JAX package lays its devices out as Mesh('data', 'model') and lets
 shard_map name an axis in each collective.  Here each process is one rank
@@ -18,6 +18,12 @@ device; gloo takes CPU tensors, and a card tensor on a gloo group (ranks
 that share one card: NCCL refuses two ranks on one device) is staged
 through pinned host memory both ways -- a transport, the same collective.
 
+The layout (`param_shardings`, `:55-94`): the JAX package hands GSPMD a
+PartitionSpec per leaf; here a leaf's spec is the axis cut over 'model'
+(this rank holds its slice: `shard_params`), or None where every rank
+holds the leaf whole -- the form `engine/tp_engine.py:tp_param_specs`
+uses.  `parallel/tp_train.py` computes a step on such shards.
+
 PR 11's `parallel/dist.py` stays what joins the default group
 (`init_dist`); the mesh builds on it.
 """
@@ -29,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..nn.spec import ConvBNSpec
 from ..utils.device import resolve_device
 from . import dist as pdist
 
@@ -119,6 +126,35 @@ class Mesh:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
 
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """Every rank's t along the axis, concatenated on `dim` in the
+        line's order (a new tensor on t's device; t itself on an axis of
+        one rank).  Counted with the bytes of this rank's t."""
+        group = self.groups.get(axis)
+        if group is None:
+            return t
+        self._count("all_gather", t)
+        src = t.contiguous()
+        if self._staged(t):
+            h = self._host(src, "all_gather")
+            h.copy_(src)
+            parts = [torch.empty_like(h) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, h, group=group)
+            return torch.cat(parts, dim).to(t.device)
+        if self.backend == "nccl":
+            out = torch.empty((self.shape[axis], *src.shape), dtype=src.dtype, device=src.device)
+            dist.all_gather_into_tensor(out, src, group=group)
+            return torch.cat(out.unbind(0), dim)
+        parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim)
+
+    def line(self, axis: str) -> Optional["MeshLine"]:
+        """This rank's line along the axis as a `group` for the statistics
+        of ops.fxp and parallel.dist (their sums then go through the mesh
+        and are counted); None on an axis of one rank."""
+        return MeshLine(self, axis) if self.groups.get(axis) is not None else None
+
     def broadcast(self, t: torch.Tensor, axis: str, src: int) -> torch.Tensor:
         """t from the rank at index `src` of the axis to every rank of it, in
         place; returns t."""
@@ -181,6 +217,18 @@ class Mesh:
         return wait
 
 
+class MeshLine:
+    """One line of a mesh, standing where a process group would: its
+    `all_reduce` is the mesh's, counted (parallel.dist.all_reduce_sum_
+    takes it)."""
+
+    def __init__(self, mesh: Mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(t, self.axis)
+
+
 class _Sent:
     """An isend's work, holding its buffer alive until it is waited on."""
 
@@ -204,11 +252,106 @@ def make_mesh(data: int = -1, model: int = 1, device="cuda") -> Mesh:
     return Mesh((data, model), ("data", "model"), device)
 
 
-def shard_batch(mesh: Mesh, x):
-    """This rank's data row's contiguous slice of a global batch (batch
-    axis first): dist.shard_batch at the rank's data coordinate."""
+def batch_sharding(mesh: Mesh):
+    """The batch's layout: a function giving this rank's data row's
+    contiguous slice of a global batch (batch axis first), the
+    counterpart of the JAX NamedSharding(mesh, P('data'))."""
     axis = mesh.axes[0]
-    return pdist.shard_batch(x, mesh.index(axis), mesh.size(axis))
+    return lambda x: pdist.shard_batch(x, mesh.index(axis), mesh.size(axis))
+
+
+def shard_batch(mesh: Mesh, x):
+    """This rank's data row's slice of a global batch (batch_sharding)."""
+    return batch_sharding(mesh)(x)
+
+
+# -- the tensor-parallel layout of the QAT params ------------------------------
+
+CHANNEL_LEAVES = ("gamma", "beta", "bias", "b", "bn_mean", "bn_var")
+
+
+def _tp_spec_for(pname: str, shape, model_axis_size: int) -> Optional[int]:
+    """A leaf's cut axis (`:55-68`): conv HWIO and linear (in, out)
+    weights on their last (out-channel) axis, the vectors that follow the
+    channel on axis 0; a scalar, any other leaf (alpha), and a leaf whose
+    out-channels do not divide by the model axis stay whole (None)."""
+    if len(shape) == 0 or shape[-1] % model_axis_size != 0:
+        return None
+    if pname == "w":
+        return len(shape) - 1
+    if pname in CHANNEL_LEAVES:
+        return 0
+    return None
+
+
+def _layer_spec_for(spec, pname: str, shape, model_axis_size: int) -> Optional[int]:
+    """_tp_spec_for within a layer: a depthwise layer stays whole
+    (`:82-83`)."""
+    if model_axis_size == 1 or (isinstance(spec, ConvBNSpec) and spec.is_depthwise):
+        return None
+    return _tp_spec_for(pname, shape, model_axis_size)
+
+
+def param_shardings(graph, params, mesh: Mesh, tensor_parallel: bool = False) -> dict:
+    """{layer: {leaf: its cut axis over 'model', or None}} for whole QAT
+    params (`:71-89`): all None for pure data parallelism (or a model axis
+    of one rank); out-channel cuts under tensor_parallel, depthwise layers
+    kept whole."""
+    msize = mesh.size("model") if tensor_parallel else 1
+    return {lname: {pname: _layer_spec_for(graph[lname], pname, tuple(leaf.shape), msize)
+                    for pname, leaf in sub.items()} for lname, sub in params.items()}
+
+
+def int_param_shardings(graph, int_params, mesh: Mesh, tensor_parallel: bool = True) -> dict:
+    """The same layout for the integer engine's {w: int8, b: int32} params
+    (`:92-94`)."""
+    return param_shardings(graph, int_params, mesh, tensor_parallel)
+
+
+def tp_layers(graph, model_axis_size: int) -> frozenset:
+    """The layers whose params param_shardings cuts: those whose weight it
+    cuts (every leaf of a layer but alpha ends in its out-channel axis, so
+    the weight's shape from the graph decides for all of them)."""
+    return frozenset(spec.name for spec in graph
+                     if _layer_spec_for(spec, "w", spec.weight_shape(), model_axis_size)
+                     is not None)
+
+
+def shard_params(tree, specs, mesh: Mesh) -> dict:
+    """This rank's slice of every cut leaf of a whole tree ({layer: {leaf:
+    tensor}}; whole leaves as they are), by `specs` from param_shardings:
+    the counterpart of a device_put with the param shardings."""
+    n, i = mesh.size("model"), mesh.index("model")
+
+    def take(t, axis):
+        if axis is None:
+            return t
+        per = t.shape[axis] // n
+        return t.narrow(axis, i * per, per).contiguous()
+
+    return {l: {k: take(v, specs[l][k]) for k, v in sub.items()} for l, sub in tree.items()}
+
+
+def gather_params(tree, specs, mesh: Mesh) -> dict:
+    """shard_params' inverse: every cut leaf whole on every rank, its
+    slices joined along its axis in the model line's order.  One
+    all-gather per dtype carries every cut leaf of it."""
+    n = mesh.size("model")
+    out = {l: dict(sub) for l, sub in tree.items()}
+    by_dtype: Dict[torch.dtype, list] = {}
+    for l, sub in tree.items():
+        for k, v in sub.items():
+            if specs[l][k] is not None:
+                by_dtype.setdefault(v.dtype, []).append((l, k, v))
+    for leaves in by_dtype.values():
+        flat = torch.cat([v.reshape(-1) for _, _, v in leaves])
+        parts = mesh.all_gather(flat, "model").view(n, -1)  # row r: rank r's slices
+        at = 0
+        for l, k, v in leaves:
+            slices = parts[:, at:at + v.numel()].reshape(n, *v.shape).unbind(0)
+            out[l][k] = torch.cat(slices, specs[l][k])
+            at += v.numel()
+    return out
 
 
 def replicate(mesh: Mesh, x) -> torch.Tensor:

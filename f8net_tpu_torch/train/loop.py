@@ -18,6 +18,18 @@ mean over the global batch), the parameter gradients (all-reduced before
 `sgd_update`, so every process applies the same update to the same
 params) and the metrics (`parallel.all_reduce_metrics`).  With no group,
 or a group of one, the step is the one-process step.
+
+Tensor parallelism (the JAX step over Mesh('data', 'model') with
+`param_shardings(..., tensor_parallel=True)`, as
+`__graft_entry__.dryrun_multichip` trains): given a mesh, the params and
+momentum are this rank's slices (`parallel.mesh.shard_params`), the state
+whole, and the images and labels its data row's shard of the global
+batch.  The forward runs the cut layers on the model line
+(parallel/tp_train.py); every reduction over the global batch -- the
+statistics, the loss, the gradients, the metrics -- spans the data line
+only, since the ranks of a model line hold the same images.  With a
+model axis of one rank the step is the data-parallel one over the data
+line.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..parallel.dist import all_reduce_metrics, all_reduce_min, all_reduce_sum_
+from ..parallel.tp_train import data_line
 from ..utils.device import float32_exact, resolve_device
 from .optim import sgd_init, sgd_update, weight_decay_mask
 from .schedules import lr_schedule
@@ -101,14 +114,28 @@ def _all_reduce_grads(grads, group) -> None:
         g.copy_(part.view_as(g))
 
 
-def make_train_step(model, cfg, tcfg, group=None):
+def _step_groups(group, mesh):
+    """(the data line's process group or None, the gradients' group):
+    under a mesh the gradients go through its data line, which counts
+    them."""
+    if mesh is None:
+        group = group if _data_parallel(group) else None
+        return group, group
+    if group is not None:
+        raise ValueError("a step takes a group or a mesh, not both")
+    return data_line(mesh), mesh.line("data")
+
+
+def make_train_step(model, cfg, tcfg, group=None, mesh=None):
     """Returns step(params, state, opt, images, labels, lr) -> (params,
     state, opt, metrics).  params and the momentum buffers are updated in
     place; images and labels are tensors on the params' device.  Given a
     process group of more than one process, images and labels are this
     process's shard of the global batch and the step is data parallel
-    (module docstring): metrics are the global batch's."""
-    group = group if _data_parallel(group) else None
+    (module docstring): metrics are the global batch's.  Given a mesh
+    instead, the step is tensor parallel over its model line and data
+    parallel over its data line (module docstring)."""
+    group, grad_group = _step_groups(group, mesh)
     mask = None  # built lazily against the param structure
 
     def step(params, state, opt, images, labels, lr):
@@ -121,12 +148,14 @@ def make_train_step(model, cfg, tcfg, group=None):
             p.requires_grad_(True)
         try:
             with float32_exact():
-                logits, new_state = model.forward(params, state, x, "train", cfg, group)
+                logits, new_state = (model.forward(params, state, x, "train", cfg, group)
+                                     if mesh is None else
+                                     model.forward(params, state, x, "train", cfg, mesh=mesh))
                 loss = cross_entropy_loss(logits, labels, total)
                 loss.backward()
             grads = {lname: {k: p.grad for k, p in sub.items()} for lname, sub in params.items()}
-            if group is not None:
-                _all_reduce_grads(grads, group)
+            if grad_group is not None:
+                _all_reduce_grads(grads, grad_group)
             if mask is None:
                 mask = weight_decay_mask(
                     model.graph, params, tcfg.weight_decay_scheme, tcfg.weight_decay
@@ -141,19 +170,23 @@ def make_train_step(model, cfg, tcfg, group=None):
     return step
 
 
-def make_eval_step(model, cfg, tcfg, mode: str = "eval", group=None):
+def make_eval_step(model, cfg, tcfg, mode: str = "eval", group=None, mesh=None):
     """step(params, state, images, labels) -> (state, metrics); 'calib'
     mode returns the calibrated BN state, 'eval' the state unchanged.
     Given a process group of more than one process, a 'calib' step's batch
     statistics and metrics span the global batch, as the train step's do;
     an 'eval' step's forward reads no statistic, and its metrics stay this
-    process's (the Trainer reduces them per epoch)."""
-    group = group if mode == "calib" and _data_parallel(group) else None
+    process's (the Trainer reduces them per epoch).  Given a mesh instead,
+    the forward is tensor parallel over its model line (params this rank's
+    slices, state whole) and the data line plays the group's part."""
+    group = _step_groups(group, mesh)[0]
+    group = group if mode == "calib" else None
 
     @torch.no_grad()
     def step(params, state, images, labels):
         x = condition_input(images, cfg)
-        logits, new_state = model.forward(params, state, x, mode, cfg, group)
+        logits, new_state = (model.forward(params, state, x, mode, cfg, group) if mesh is None
+                             else model.forward(params, state, x, mode, cfg, mesh=mesh))
         loss = cross_entropy_loss(logits, labels, _global_count(labels, group))
         return new_state, _metrics(loss, logits, labels, tcfg, group)
 

@@ -224,6 +224,28 @@ def test_dp_phase_on_cpu(monkeypatch, capsys):
         assert want in out, want
 
 
+def test_tpqat_phase_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's tpqat phase on the CPU at 32 px, 16 classes, a
+    global batch of 4 on a (1, 2) mesh of two gloo ranks, on the plain
+    versions: both steps with the params out-channel sharded, every rank's
+    gathered trees bitwise alike and within the dp phase's limits of one
+    process's, the calibration and bake on the mesh, TPEngine bitwise
+    IntEngine with every call held against its plain version and its
+    table; not the card's launches."""
+    for name, value in dict(DP_BATCH=4, TPQAT_TIMED_STEPS=1,
+                            TRAIN_OVERRIDES={"image_size": 32, "num_classes": 16}).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    launches = chip_smoke.tpqat_phase(0, "cpu", device="cpu")
+    assert launches == {name: 0 for name in chip_smoke.KERNELS}
+    out = capsys.readouterr().out
+    label = "tpqat (data, model) = (1, 2), 2 ranks sharing the card over gloo"
+    for kind in ("floating_wo_clip", "qat"):
+        assert f"{label}: {kind} step, 32 px, global batch 4, 21 of 21 layers cut" in out, kind
+    for want in ("rank 1 QAT step wall ms", "TPEngine on the mesh bitwise equal to IntEngine",
+                 "'all_gather': 41", "tpqat phase:"):
+        assert want in out, want
+
+
 def test_tools_phase_on_cpu(capsys):
     """chip_smoke.py's offline-tools step on the CPU: a ResNet-18 at 32 px
     from Model.init, the fits on the CPU against themselves, the folded
