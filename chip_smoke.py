@@ -11,7 +11,9 @@ in the engine's three boundary rungs (strict, `int8_boundary=True`,
 `bf16_boundary=True`), twelve forwards, through the entry points a user
 calls (`load_deploy_bundle`, `model_from_topology`, `IntEngine(...)`,
 `IntEngine.condition_input`, `IntEngine.__call__`), on random weights made
-from the seed; the port's own QAT forward and bake; and its training path
+from the seed, and again with bake-time channel padding
+(`IntEngine(..., pad_channels_to=N)`); the port's own QAT forward and bake,
+and QAT with the bf16-operand conv (`cfg.train_conv_bf16`); and its training path
 (Trainer, sgd_update, checkpoints, the Loader on its native and PIL paths,
 the run.py CLI, the parity harness, data parallelism over two processes);
 tensor-parallel QAT training on the rank mesh (param_shardings, the TP
@@ -91,7 +93,18 @@ offline tools:
            bitwise equal to the card's strict engine's (CPU wall time
            logged); its F8NB bundle written and read back equal to the plan
            and int params
-  train    (after timing) ResNet-18 from the repository's
+  pad      (after timing) each path and rung again through
+           IntEngine(..., pad_channels_to=N), N in PAD_TO where it pads a
+           channel (MobileNetV2 and V1 at 64 in every rung and at 128 in the
+           strict one, the ResNets at 128 in every rung: K3 writes 128
+           channels), on the same bundles and batch: every
+           kernel call against its plain version, the logits bitwise the
+           unpadded engine's, the launches (counts set to 0 just before the
+           forward) the padded routing's table (IntEngine.launch_table: K7
+           takes the GEMMs padding widens out of K1's range); device ms per
+           forward at batch 8 and 64 beside the unpadded engine's (`pad |`
+           lines)
+  train    (after pad) ResNet-18 from the repository's
            fix_quant_train.yml at its full width (1000 classes, 224 px),
            written to a temporary YAML with the synthetic dataset, a
            temporary log directory and one epoch of TRAIN_SYNTHETIC images:
@@ -122,7 +135,32 @@ offline tools:
            synthetic dry run on the card, integize's logits bitwise equal
            to int_op_only's on every image; each CLI phase's
            wall s logged
-  dp       (after train) ResNet-18 from the same config at full width, a
+  bf16train (after train) cfg.train_conv_bf16: each distinct conv of
+           ResNet-18's and MobileNetV2's QAT forward at batch TRAIN_BATCH,
+           224 px, through the flagged conv (bfloat16-rounded operands on
+           TF32 tensor cores, inside float32_exact as the train step runs
+           it) against the float64 conv of the same rounded operands:
+           bitwise on small-grid operands; on operands like the
+           batch-statistics conv's each output within BF16_CONV_BOUND of its
+           sqrt(sum of squared products), with cudnn.benchmark off (the
+           Trainer's) and on, and no Winograd or FFT kernel launched
+           (torch.profiler); the float32 conv's (TF32 off) and an im2col
+           GEMM's on cuBLAS's TF32 tensor cores errors logged beside it;
+           CUDA-event ms of the float32 conv, the flagged conv and F.conv2d
+           in bf16 (the library yardstick) beside the TF32 bound; then the
+           train phase's QAT step with the flag off and on, BF16_ROUNDS
+           interleaved rounds of BF16_ROUND_STEPS steps on one set of
+           params: wall ms, images/s, peak memory, and per flag one
+           profiled step and one profiled forward (the forward's convs over
+           the TF32 or float32 peak, the backward's over the float32
+           peak); then BF16_TRAIN_STEPS more flagged steps, BF16_CALIB_STEPS
+           flagged calib steps, bake_plan, and the strict engine on the
+           bake: every kernel call against its plain version, logits bitwise
+           the plain path's, 19 K2 + 1 K3 + 1 K1; and run.main with
+           `train_conv_bf16: True` in the train phase's YAML for one
+           synthetic epoch (it must call the flagged conv and write its
+           checkpoint)
+  dp       (after bf16train) ResNet-18 from the same config at full width, a
            global batch of DP_BATCH split over DP_WORLD spawned ranks that
            share the card over gloo (parallel.init_dist): one
            floating_wo_clip and one QAT train step on each rank's shard,
@@ -238,9 +276,10 @@ packed layouts.
 The serve, export and train phases' numbers are logged on lines before the
 kernel table.  A kernel's `launches` there are those of the twelve forwards
 (K6's: of the flat phase); the table adds each kernel's launches while serving
-(`serve_launches`) and on the tp, pp, xserve and tpqat phases' forwards,
+(`serve_launches`), on the tp, pp, xserve and tpqat phases' forwards,
 summed over the ranks (`tp_launches`, `pp_launches`, `xserve_launches`,
-`tpqat_launches`).
+`tpqat_launches`), on the pad phase's padded forwards (`pad_launches`) and
+on the bf16train phase's engine (`bf16train_launches`).
 
 Any failed check raises, and the script exits non-zero without a result.
 The last three lines of standard output are the kernel table (JSON), the
@@ -281,6 +320,7 @@ from f8net_tpu_torch.export import (
     save_deploy_bundle, save_native_bundle,
 )
 from f8net_tpu_torch.models import get_model
+from f8net_tpu_torch.nn import quant_layers as ql, runner as nn_runner
 from f8net_tpu_torch.nn.pool import avgpool_shift_for
 from f8net_tpu_torch.nn.spec import ConvBNSpec
 from f8net_tpu_torch.ops import _build, conv as conv_ops, dw as dw_ops, gemm as gemm_ops
@@ -375,7 +415,7 @@ TRAIN_CONFIG = "configs/imagenet/resnet18/conventional/fix_quant_train.yml"
 INT_CONFIG = "configs/imagenet/resnet18/conventional/fix_quant_test_int_op_only.yml"
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SYNTHETIC, TRAIN_WORKERS = 64, 1, 64, 4
 OVERFIT_STEPS, OVERFIT_LR, TRAIN_TIMED_STEPS, PARITY_BATCH = 32, 0.005, 20, 16
-LOADER_EPOCHS, LOADER_BATCHES, LOADER_DECODE_THREADS = 3, 16, 2
+LOADER_EPOCHS, LOADER_BATCHES, LOADER_DECODE_THREADS = 2, 16, 2
 LOADER_IMAGE = (500, 375)  # (width, height) of the Loader's JPEGs
 BIAS_LIFT = 100.0
 TRAIN_OVERRIDES: dict = {}
@@ -423,6 +463,37 @@ MP_TIMED_PATHS = ("resnet50", "mobilenet_v2")
 # kernel call held against its plain version; CrossHost ticks every
 # XSERVE_TICK_MS
 XSERVE_POOL, XSERVE_CLIENTS, XSERVE_REQUESTS, XSERVE_CHECKED, XSERVE_TICK_MS = 1024, 8, 6, 2, 2.0
+# the bf16train phase (cfg.train_conv_bf16): each distinct conv of
+# BF16_PATHS' QAT step at TRAIN_BATCH and IMAGE_SIZE px, flagged on the card
+# against a float64 conv of the same bfloat16-rounded operands.  On operands
+# like the batch-statistics conv's (fix_scaling * x, raw weights) every
+# output must lie within BF16_CONV_BOUND of its sqrt(sum of squared
+# products), with the algorithm cuDNN's heuristics pick (the Trainer leaves
+# cudnn.benchmark off) and the one its autotuner picks (benchmark on), and
+# neither may launch a kernel whose name holds one of BF16_REFUSED: Winograd
+# and FFT convs transform the operands before the tensor cores round them to
+# TF32, so their products are not exact.  On small-grid operands (x = i / 8,
+# 0 <= i < 8; w = j / 4, |j| <= 3; batch BF16_GRID_BATCH) every product and
+# partial sum is exact in float32, and the conv must equal the float64 conv
+# bitwise.  Logged beside the error: the float32 conv's (TF32 off) and the
+# witness's, an im2col GEMM of the same rounded operands on cuBLAS's TF32
+# tensor cores (exact products, the tensor cores' accumulation, no conv
+# algorithm).  Then the train phase's QAT step with the flag off and on in
+# BF16_ROUNDS interleaved rounds of BF16_ROUND_STEPS steps, and a ResNet-18
+# trained BF16_TRAIN_STEPS more flagged steps, calibrated over
+# BF16_CALIB_STEPS flagged calib steps, baked and run by IntEngine
+BF16_PATHS = ("resnet18", "mobilenet_v2")
+BF16_CONV_BOUND = 2.0**-14
+BF16_REFUSED = ("winograd", "fft")
+BF16_GRID_BATCH = 8
+BF16_ROUNDS, BF16_ROUND_STEPS, BF16_TRAIN_STEPS, BF16_CALIB_STEPS = 4, 3, 2, 2
+# the pad phase: each path's engines again with IntEngine(pad_channels_to=N)
+# for N in PAD_TO where N pads some channel (the ResNets have none below 64),
+# every rung at the smallest N that pads the path and the strict rung at the
+# larger ones; every kernel call against its plain version, logits bitwise
+# the unpadded engine's; device ms per forward over PAD_REPS forwards at each
+# of TIMED_BATCHES beside the unpadded engine's
+PAD_TO, PAD_REPS = (64, 128), 5
 # the lines of the CLI's fraclen report (logged as a count)
 REPORT_KEYS = ("layer name:", "alpha:", "master layer", "weight format:", "input format:",
                "fix scaling:", "following layer fix scaling:", "input_fraclen:",
@@ -764,7 +835,7 @@ def nbytes(*ts) -> int:
     )
 
 
-STEM_WEIGHTS = 7 * 7 * 3 * 64  # the stem's HWIO weights, packed or not
+STEM_TAPS = 7 * 7 * 3  # the stem's HWIO weights per output channel, packed or not
 
 
 def work(name, args, kw, out):
@@ -776,8 +847,8 @@ def work(name, args, kw, out):
     x, w = args[0], args[1]
     if name == "stem_pool":  # weights HWIO or packed: the function's bytes
         oh, ow, _, _ = stem_ops.stem_out_hw(x.shape[1], x.shape[2])
-        nb = nbytes(x, *args[2:], out) + STEM_WEIGHTS
-        return nb, 2 * x.shape[0] * oh * ow * STEM_WEIGHTS
+        nb = nbytes(x, *args[2:], out) + STEM_TAPS * out.shape[3]
+        return nb, 2 * x.shape[0] * oh * ow * STEM_TAPS * out.shape[3]
     if name in ("int8_gemm", "int8_gemm_v2"):  # (M, K) x (K, N), N from the output
         macs = x.shape[0] * x.shape[1] * out.shape[1]
     elif name == "conv_flat_int8":  # every row of the raster; a masked ring needs no taps
@@ -1539,15 +1610,20 @@ def timing_phase(forwards, paths, flat, extra, images, device, card: str) -> dic
 
     # whole forwards: the bf16 baseline first, then each rung, per path, in
     # one call on one card; cuDNN picks its fastest algorithm for the
-    # baseline, as a bf16 deployment would let it
+    # baseline, as a bf16 deployment would let it; the phases after this one
+    # (the training steps) run with the setting the Trainer leaves, as before
+    speeds, autotune = {}, torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
-    speeds = {}
-    for path in LAUNCHES_PER_FORWARD:
-        speeds[(path, "bf16 baseline")] = time_baseline(path, paths[path][0], images, card)
-        for rung in (None, *RUNGS):
-            eng = forwards[(path, rung)][0]
-            label = f"{path} {RUNGS.get(rung, 'strict')}"
-            speeds[(path, label)] = time_forward(label, eng, images, card, eng.condition_input)
+    try:
+        for path in LAUNCHES_PER_FORWARD:
+            speeds[(path, "bf16 baseline")] = time_baseline(path, paths[path][0], images, card)
+            for rung in (None, *RUNGS):
+                eng = forwards[(path, rung)][0]
+                label = f"{path} {RUNGS.get(rung, 'strict')}"
+                speeds[(path, label)] = time_forward(label, eng, images, card,
+                                                     eng.condition_input)
+    finally:
+        torch.backends.cudnn.benchmark = autotune
     log(f"images/s and ratio to the bf16 baseline, {IMAGE_SIZE} px ({card}): path | batch | "
         f"bf16 baseline | strict (ratio) | int8 (ratio) | bf16 (ratio)")
     for path in LAUNCHES_PER_FORWARD:
@@ -2127,6 +2203,25 @@ def update_rule_step(model, trainer, params, state, opt, images, labels) -> None
         f"bitwise equal to the CPU's, params and momentum; {moved} params moved")
 
 
+# kernel names by kind, the first match wins
+CONV_KIND = "convolutions and GEMMs (cuDNN, cuBLAS)"
+KERNEL_KINDS = (("layout conversions", ("nhwctonchw", "nchwtonhwc")),
+                (CONV_KIND, ("xmma", "cudnn", "gemm", "cutlass")),
+                ("reductions", ("reduce",)), ("elementwise and other", ("",)))
+
+
+def by_kind(ka) -> dict:
+    """{kind: [device ms, kernels]} of profiler key_averages, by KERNEL_KINDS."""
+    out = {name: [0.0, 0] for name, _ in KERNEL_KINDS}
+    for e in ka:
+        if e.self_device_time_total <= 0:
+            continue
+        name = next(n for n, keys in KERNEL_KINDS if any(k in e.key.lower() for k in keys))
+        out[name][0] += e.self_device_time_total / 1e3
+        out[name][1] += e.count
+    return out
+
+
 def time_train_step(model, trainer, params, state, opt, card: str) -> float:
     """Wall ms per train step at batch TRAIN_BATCH (CUDA-synchronised host
     clock, TRAIN_TIMED_STEPS steps), images/s and peak device memory; one
@@ -2179,18 +2274,10 @@ def time_train_step(model, trainer, params, state, opt, card: str) -> float:
     for e in top:
         log(f"  train step device time: {e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
             f"x{e.count}")
-    # kernel names by kind, the first match wins
-    kinds = (("layout conversions", ("nhwctonchw", "nchwtonhwc")),
-             ("convolutions and GEMMs (cuDNN, cuBLAS)", ("xmma", "cudnn", "gemm", "cutlass")),
-             ("reductions", ("reduce",)), ("elementwise and other", ("",)))
-    by_group = {name: [0.0, 0] for name, _ in kinds}
-    for e in ka:
-        name = next(n for n, keys in kinds if any(k in e.key.lower() for k in keys))
-        by_group[name][0] += e.self_device_time_total / 1e3
-        by_group[name][1] += e.count
+    by_group = by_kind(ka)
     log("train: step device ms by kind: " + "; ".join(
         f"{name} {kms:.2f} ms in {n} kernels" for name, (kms, n) in by_group.items()))
-    conv_ms = by_group["convolutions and GEMMs (cuDNN, cuBLAS)"][0]
+    conv_ms = by_group[CONV_KIND][0]
     rate = flops / (conv_ms * 1e-3)
     log(f"train: the step's convolutions and GEMMs, forward and backward, as autograd ran them: "
         f"{flops / 1e12:.4f} TFLOP ({by_op}); model_flops' forward "
@@ -3598,6 +3685,381 @@ def xserve_phase(forwards, card: str, seed: int, device="cuda", world: int = MP_
     return total
 
 
+# -- bf16train: cfg.train_conv_bf16 on TF32 tensor cores ------------------------
+
+
+def qat_convs(path: str, side: int, device) -> dict:
+    """Each distinct conv of `path`'s QAT forward at `side` px, 1000
+    classes: {(in, out, kernel, stride, padding, groups, h, w): (spec,
+    [layer names])}, from one train-mode forward at batch 1."""
+    model = get_model(path, CFG, num_classes=1000, image_size=side)
+    params, state = model.init(torch.Generator().manual_seed(0), device=device)
+    seen, conv = {}, nn_runner.Runner.conv
+
+    def record(self, name, act):
+        spec, x = self.graph[name], ql.as_act(act).x
+        key = (spec.in_ch, spec.out_ch, spec.kernel, spec.stride, spec.padding, spec.groups,
+               x.shape[1], x.shape[2])
+        seen.setdefault(key, (spec, []))[1].append(name)
+        return conv(self, name, act)
+
+    with patched(nn_runner.Runner, "conv", record), torch.no_grad():
+        model.apply(params, state, torch.rand((1, side, side, 3), device=device), mode="train")
+    return seen
+
+
+def _conv64(x, w, spec):
+    """NHWC x HWIO conv in float64."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=spec.stride,
+                    padding=spec.padding, groups=spec.groups).permute(0, 2, 3, 1)
+
+
+def _gemm_tf32(x, w, spec):
+    """The NHWC x HWIO conv as an im2col GEMM (one per group) on cuBLAS's
+    TF32 tensor cores: the bf16train phase's witness."""
+    n, g = x.shape[0], spec.groups
+    cols = F.unfold(x.permute(0, 3, 1, 2), spec.kernel, padding=spec.padding,
+                    stride=spec.stride)
+    cols = cols.view(n, g, -1, cols.shape[-1])
+    wk = w.permute(3, 2, 0, 1).reshape(g, spec.out_ch // g, -1)
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = torch.einsum("ngkl,gok->ngol", cols, wk)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+    (kh, kw), (sh, sw), (ph, pw) = spec.kernel, spec.stride, spec.padding
+    ho, wo = (x.shape[1] + 2 * ph - kh) // sh + 1, (x.shape[2] + 2 * pw - kw) // sw + 1
+    return y.reshape(n, spec.out_ch, ho, wo).permute(0, 2, 3, 1)
+
+
+def bf16_conv_row(path, key, spec, names, batch, device, card: str, seed: int):
+    """One conv of the QAT step with the flag (ql.conv2d_bf16, inside
+    float32_exact as the train step runs it: bfloat16-rounded operands on
+    TF32 tensor cores) against the float64 conv of the same rounded
+    operands, held as the constants' comment says: bitwise on small-grid
+    operands; on the batch-statistics conv's operands within
+    BF16_CONV_BOUND of each output's sqrt(sum of squared products) with
+    cudnn.benchmark off and, on a card, on; the float32 conv's (TF32 off)
+    and the TF32 GEMM witness's errors logged beside it; on a card the
+    float32 conv's, the flagged conv's and F.conv2d's in bf16
+    (channels_last) CUDA-event ms and the TF32 bound.  Returns (its row,
+    the flagged call on those operands, for bf16_kernels)."""
+    h, w_ = key[6], key[7]
+    kh, kw = spec.kernel
+    k = kh * kw * spec.in_ch // spec.groups
+    cuda = device.type == "cuda"
+    g = torch.Generator(device=device).manual_seed(seed)
+    xg = torch.randint(0, 8, (BF16_GRID_BATCH, h, w_, spec.in_ch), generator=g,
+                       device=device) / 8.0
+    wg = torch.randint(-3, 4, spec.weight_shape(), generator=g, device=device) / 4.0
+    with float32_exact():
+        exact = torch.equal(ql.conv2d_bf16(xg, wg, spec).double(),
+                            _conv64(xg.double(), wg.double(), spec))
+    del xg, wg
+    # fix_scaling * x (>= 0, on no grid) and raw weights (He std)
+    x = torch.randn((batch, h, w_, spec.in_ch), generator=g, device=device).abs_().mul_(3.0)
+    w = torch.randn(spec.weight_shape(), generator=g, device=device) * math.sqrt(2.0 / k)
+    xb, wb = ql.bf16_round(x), ql.bf16_round(w)
+    ref = _conv64(xb.double(), wb.double(), spec)
+    l2 = _conv64(xb.double().square_(), wb.double().square_(), spec).sqrt_().clamp_min_(1e-300)
+
+    def dist(y):
+        return float(((y.double() - ref).abs_() / l2).max())
+
+    def flagged():
+        with float32_exact():
+            return ql.conv2d_bf16(x, w, spec)
+
+    errs, autotune = {}, torch.backends.cudnn.benchmark
+    try:
+        for bench in ((False, True) if cuda else (False,)):
+            torch.backends.cudnn.benchmark = bench
+            errs[bench] = dist(flagged())  # with benchmark on, the autotuner's search
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+    with float32_exact():
+        err32 = dist(ql.conv2d_nhwc(xb, wb, spec))
+    err_gemm = dist(_gemm_tf32(xb, wb, spec))
+    n_out = ref.numel()
+    flops = 2 * n_out * k
+    del xb, wb, ref, l2
+    err = max(errs.values())
+    row = dict(path=path, shape=f"{spec.in_ch}->{spec.out_ch} {kh}x{kw}/s{spec.stride[0]}"
+               f"{' dw' if spec.groups > 1 else ''} at {h}x{w_}", layers=len(names), k=k,
+               exact=exact, err=err, err32=err32, err_gemm=err_gemm, flops=flops)
+    text = (f"bf16train conv {path} {row['shape']} (x{len(names)}: {names[0]}), batch {batch}, "
+            f"K {k}: small-grid operands {'bitwise' if exact else 'NOT bitwise'} the float64 "
+            f"conv; max |flagged - float64| / sqrt(sum p^2) "
+            + ", ".join(f"{e:.3e} (cudnn.benchmark {'on' if b else 'off'})"
+                        for b, e in errs.items())
+            + f", bound {BF16_CONV_BOUND:.3e}; the float32 conv (TF32 off) {err32:.3e}, the "
+            f"im2col GEMM on TF32 tensor cores {err_gemm:.3e}")
+    if cuda:
+        xl = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wl = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        row.update(
+            f32_ms=time_ms(lambda: ql.conv2d_nhwc(x, w, spec), reps=5, rounds=3),
+            bf16_ms=time_ms(flagged, reps=5, rounds=3),
+            lib_ms=time_ms(lambda: F.conv2d(xl, wl, stride=spec.stride, padding=spec.padding,
+                                            groups=spec.groups), reps=5, rounds=3),
+            bound_ms=1e3 * max(flops / H100_PEAK_OPS["tf32"],
+                               4 * (x.numel() + w.numel() + n_out) / HBM_BYTES_PER_S))
+        text += (f"; f32 {row['f32_ms']:.4f} ms, flagged {row['bf16_ms']:.4f} ms (the rounding "
+                 f"included), F.conv2d in bf16 {row['lib_ms']:.4f} ms, TF32 bound "
+                 f"{row['bound_ms']:.4f} ms")
+    log(text + f" ({card})")
+    if not exact or err > BF16_CONV_BOUND:
+        raise AssertionError(f"bf16train: {path} {row['shape']}: the flagged conv is "
+                             f"{'' if exact else 'not '}exact on small-grid operands, "
+                             f"{err:.3e} from the float64 conv of its rounded operands (bound "
+                             f"{BF16_CONV_BOUND:.3e})")
+    return row, flagged
+
+
+def bf16_kernels(path: str, runs, card: str) -> None:
+    """The kernels `path`'s flagged convs (`runs`, each searched by the
+    autotuner already) launch with cudnn.benchmark off and on, in one
+    torch.profiler session; raises on a BF16_REFUSED one."""
+    autotune = torch.backends.cudnn.benchmark
+
+    def run():
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            for flagged in runs:
+                flagged()
+
+    try:
+        names = {e.key for e in profile(run) if e.self_device_time_total > 0}
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+    refused = sorted(n for n in names if any(r in n.lower() for r in BF16_REFUSED))
+    log(f"bf16train: {path}'s {len(runs)} flagged convs, cudnn.benchmark off and on, launched "
+        f"{sorted(n[:64] for n in names if 'elementwise' not in n.lower())} beside the "
+        f"rounding's elementwise kernels ({card})")
+    if refused:
+        raise AssertionError(f"bf16train: {path}'s flagged convs launched {refused}: their "
+                             f"products are not exact")
+
+
+def bf16_step_profile(label, model, trainer, params, state, opt, images, labels, card: str):
+    """One QAT step of `trainer` profiled (device ms, convolution and GEMM
+    ms) and its forward alone (train mode, autograd on: the forward's conv
+    and GEMM ms), the step's conv FLOPs forward (aten.convolution) and
+    backward (aten.convolution_backward), each over its device ms.  Returns
+    (step device ms, forward conv ms, backward conv ms)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def step():
+        trainer.train_step(params, state, opt, images, labels, 1e-4)
+
+    leaves = [p for sub in params.values() for p in sub.values()]
+    x = train_loop.condition_input(images, trainer.cfg)
+
+    def forward():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with float32_exact():
+                model.forward(params, state, x, "train", trainer.cfg)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+
+    step_kinds, fwd_kinds = by_kind(profile(step)), by_kind(profile(forward))
+    busy = sum(v[0] for v in step_kinds.values())
+    fwd_ms = fwd_kinds[CONV_KIND][0]
+    bwd_ms = step_kinds[CONV_KIND][0] - fwd_ms
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step()
+    by_op = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+    fwd_fl, bwd_fl = by_op.get("aten.convolution", 0), by_op.get("aten.convolution_backward", 0)
+    peak = "tf32" if trainer.cfg.train_conv_bf16 else "float32"
+    log(f"bf16train: {label} step device ms {busy:.2f}; convolutions and GEMMs "
+        f"{step_kinds[CONV_KIND][0]:.2f} ms ({step_kinds[CONV_KIND][1]} kernels): forward "
+        f"{fwd_ms:.2f} ms for {fwd_fl / 1e12:.4f} TFLOP, {fwd_fl / fwd_ms / 1e9:.2f} TFLOP/s = "
+        f"{fwd_fl / fwd_ms / 1e9 / (H100_PEAK_OPS[peak] / 1e12):.3f} of the H100's "
+        f"{H100_PEAK_OPS[peak] / 1e12:.1f} TFLOP/s {peak} dense peak; backward {bwd_ms:.2f} ms "
+        f"for {bwd_fl / 1e12:.4f} TFLOP, {bwd_fl / bwd_ms / 1e9:.2f} TFLOP/s = "
+        f"{bwd_fl / bwd_ms / 1e9 / (H100_PEAK_OPS['float32'] / 1e12):.3f} of the "
+        f"{H100_PEAK_OPS['float32'] / 1e12:.1f} TFLOP/s float32 peak; elementwise and other "
+        f"{step_kinds['elementwise and other'][0]:.2f} ms ({card})")
+    return busy, fwd_ms, bwd_ms
+
+
+def bf16train_phase(seed: int, images, card: str, device="cuda"):
+    """cfg.train_conv_bf16 on the card (module docstring).  Returns
+    (launches per forward, checked kernel calls) of the flag-trained bake's
+    engine."""
+    dev = torch.device(device)
+    t0 = time.time()
+    rows = []
+    for path in BF16_PATHS:
+        runs = []
+        for i, (key, (spec, names)) in enumerate(qat_convs(path, IMAGE_SIZE, dev).items()):
+            row, flagged = bf16_conv_row(path, key, spec, names, TRAIN_BATCH, dev, card, seed + i)
+            rows.append(row)
+            runs.append(flagged)
+        if dev.type == "cuda":
+            bf16_kernels(path, runs, card)
+        del runs
+    if dev.type == "cuda":
+        for path in BF16_PATHS:
+            mine = [r for r in rows if r["path"] == path]
+            tot = {k: sum(r[k] * r["layers"] for r in mine)
+                   for k in ("f32_ms", "bf16_ms", "lib_ms", "bound_ms")}
+            log(f"bf16train: {path}'s {sum(r['layers'] for r in mine)} QAT convs "
+                f"({len(mine)} distinct), one forward conv each at batch {TRAIN_BATCH}: f32 "
+                f"{tot['f32_ms']:.3f} ms, flagged {tot['bf16_ms']:.3f} ms "
+                f"({tot['f32_ms'] / tot['bf16_ms']:.2f}x), F.conv2d in bf16 "
+                f"{tot['lib_ms']:.3f} ms, TF32 bound {tot['bound_ms']:.3f} ms; every conv "
+                f"bitwise on small-grid operands, no Winograd or FFT kernel; largest error "
+                f"over sqrt(sum p^2) {max(r['err'] for r in mine):.3e}, "
+                f"{max(r['err'] for r in mine) / BF16_CONV_BOUND:.3f} of the bound (float32, "
+                f"TF32 off: {max(r['err32'] for r in mine):.3e}; the TF32 GEMM witness: "
+                f"{max(r['err_gemm'] for r in mine):.3e}) ({card})")
+    t1 = time.time()
+
+    # the QAT step, flag off and on in interleaved rounds, on one set of params
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, tcfg, _ = from_flags(load_yaml(train_yaml(tmp, "bf16", TRAIN_CONFIG)), TRAIN_BATCH)
+    model = get_model("resnet18", cfg, num_classes=tcfg.num_classes, image_size=tcfg.image_size)
+    trainers = {flag: train_loop.Trainer(model, cfg.replace(train_conv_bf16=flag), tcfg,
+                                         log=lambda *a: None, device=dev)
+                for flag in (False, True)}
+    params, state, opt = trainers[True].init(torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    side = tcfg.image_size
+    x = torch.rand((TRAIN_BATCH, side, side, 3), generator=g).to(dev)
+    y = torch.randint(0, model.num_classes, (TRAIN_BATCH,), generator=g).to(dev)
+    walls, peak = {False: [], True: []}, {False: 0, True: 0}
+    name = {False: "flag off", True: "flag on"}
+    for flag in (False, True):  # warm-up (cuDNN's algorithm search included)
+        trainers[flag].train_step(params, state, opt, x, y, 1e-4)
+    for r in range(BF16_ROUNDS if dev.type == "cuda" else 1):
+        for flag in ((False, True) if r % 2 == 0 else (True, False)):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            for _ in range(BF16_ROUND_STEPS):
+                t = time.perf_counter()
+                trainers[flag].train_step(params, state, opt, x, y, 1e-4)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                walls[flag].append((time.perf_counter() - t) * 1e3)
+            if dev.type == "cuda":
+                peak[flag] = max(peak[flag], torch.cuda.max_memory_allocated())
+    if dev.type == "cuda":
+        med = {}
+        for flag in (False, True):
+            med[flag] = statistics.median(walls[flag])
+            q1, _, q3 = statistics.quantiles(walls[flag], n=4)
+            log(f"bf16train: QAT step ({TRAIN_CONFIG}, batch {TRAIN_BATCH}, {side} px), "
+                f"{name[flag]}: {med[flag]:.2f} ms wall (median of {len(walls[flag])} in "
+                f"{BF16_ROUNDS} interleaved rounds; quartiles {q1:.2f} / {q3:.2f}: "
+                + " ".join(f"{v:.2f}" for v in walls[flag])
+                + f"), {TRAIN_BATCH / med[flag] * 1e3:.1f} images/s, peak memory "
+                f"{peak[flag] / 2**30:.3f} GiB ({card})")
+        prof = {flag: bf16_step_profile(name[flag], model, trainers[flag], params, state, opt,
+                                        x, y, card) for flag in (False, True)}
+        log(f"bf16train: flag on against off: wall {med[True] / med[False]:.3f}x, device ms "
+            f"{prof[True][0] / prof[False][0]:.3f}x, forward convs {prof[True][1]:.2f} against "
+            f"{prof[False][1]:.2f} ms, backward convs {prof[True][2]:.2f} against "
+            f"{prof[False][2]:.2f} ms ({card})")
+    t2 = time.time()
+
+    # run.main with the flag in its YAML, as a user trains with it
+    flagged, real = [], ql.conv2d_bf16
+    with tempfile.TemporaryDirectory() as tmp, \
+            patched(ql, "conv2d_bf16", lambda *a: flagged.append(1) or real(*a)):
+        path = train_yaml(tmp, "bf16", TRAIN_CONFIG, train_conv_bf16=True)
+        _, lines, wall = run_cli("bf16", [f"app:{path}", f"bs:{TRAIN_BATCH}"], dev)
+        saved = os.path.exists(os.path.join(tmp, "log", "latest_checkpoint.npz"))
+    if "Start training." not in lines or not flagged or not saved:
+        raise AssertionError(f"bf16train: run.main with train_conv_bf16 did not train with it "
+                             f"({len(flagged)} flagged convs, checkpoint written: {saved})")
+    log(f"bf16train: run.main with train_conv_bf16 in its YAML trained {TRAIN_EPOCHS} epoch of "
+        f"{TRAIN_SYNTHETIC} synthetic images through {len(flagged)} flagged convs and wrote "
+        f"latest_checkpoint, {wall:.1f} s wall ({card})")
+
+    # a flag-trained ResNet-18: more flagged steps, flagged calibration, bake
+    trainer = trainers[True]
+    for _ in range(BF16_TRAIN_STEPS):
+        params, state, opt, _ = trainer.train_step(params, state, opt, x, y, 1e-4)
+    state = reset_bn_for_calib(state)
+    for _ in range(BF16_CALIB_STEPS):
+        state, _ = trainer.calib_step(params, state, x, y)
+    plan, int_params = bake_plan(model, params, state)
+    eng = IntEngine(model, plan, int_params, device=dev)
+    _, counts, checked = drive("resnet18 bf16-trained", "resnet18", eng, images,
+                               log_calls=False, gate=False)
+    log(f"bf16train: the flag-trained ResNet-18 baked: fraclens "
+        + " ".join(f"{p.name}={p.input_fl}/{p.weight_fl}" for p in plan.layers))
+    log(f"bf16train phase: {time.time() - t0:.1f} s wall (the convs {t1 - t0:.1f} s, the steps "
+        f"{t2 - t1:.1f} s, the CLI and the bake {time.time() - t2:.1f} s) ({card})")
+    return counts, checked
+
+
+# -- pad: IntEngine(pad_channels_to=N) ------------------------------------------
+
+
+def pad_phase(forwards, images, card: str, device="cuda") -> dict:
+    """Every path and rung again through IntEngine(..., pad_channels_to=N)
+    on the same bundle, for each N of PAD_TO that pads a channel (module
+    docstring).  Returns {kernel: launches} summed over the padded
+    forwards."""
+    dev = torch.device(device)
+    t0 = time.time()
+    total = {name: 0 for name in KERNELS}
+    base_ms = {}
+    for path in LAUNCHES_PER_FORWARD:
+        padded = False  # at a smaller N, in every rung
+        for to in PAD_TO:
+            for rung in (None, *RUNGS) if not padded else (None,):
+                base = forwards[(path, rung)][0]
+                eng = IntEngine(base.model, base.plan, base.params, device=dev,
+                                pad_channels_to=to, **({rung: True} if rung else {}))
+                label = f"{path} {RUNGS.get(rung, 'strict')} pad {to}"
+                widened = sum(a != b for a, b in zip(base.graph, eng.graph))
+                if not widened:
+                    log(f"{label}: no channel below {to}; the padded graph is the model's")
+                    continue
+                x = eng.condition_input(images[:BATCH])
+                logits, ref, counts, calls, _ = engine_phase(eng, x)
+                for name, cargs, kw in calls:
+                    compare(name, cargs, kw)
+                check_logits(logits, ref, x.shape[0], eng.model.num_classes)
+                if not torch.equal(logits, base(x)):
+                    raise AssertionError(f"{label}: logits differ from the unpadded engine's")
+                table = eng.launch_table()
+                recorded = {n: [c[0] for c in calls].count(n) for n in table}
+                if recorded != table or (dev.type == "cuda"
+                                         and {k: v for k, v in counts.items() if v} != table):
+                    raise AssertionError(f"{label}: launches {counts}, calls {recorded}, "
+                                         f"routing's table {table}")
+                total = {k: total[k] + counts[k] for k in KERNELS}
+                padded = True
+                log(f"{label}: {widened} layers widened; all {len(calls)} kernel calls equal to "
+                    f"their plain versions, logits bitwise equal to the unpadded engine's; "
+                    f"launches {table} (unpadded {LAUNCHES_PER_FORWARD[path]})")
+                if dev.type != "cuda":
+                    continue
+                cells = []
+                for b in TIMED_BATCHES:
+                    xb = eng.condition_input(images[:b])
+                    if (path, rung, b) not in base_ms:
+                        base_ms[(path, rung, b)] = device_ms(lambda: base(xb), PAD_REPS)[0]
+                    ms = device_ms(lambda: eng(xb), PAD_REPS)[0]
+                    cells.append(f"batch {b}: {ms:.4f} device ms per forward against "
+                                 f"{base_ms[(path, rung, b)]:.4f} unpadded "
+                                 f"({ms / base_ms[(path, rung, b)]:.3f}x)")
+                log(f"  pad | {label} | " + "; ".join(cells) + f" ({card})")
+    log(f"pad phase: {time.time() - t0:.1f} s wall; launches {total} ({card})")
+    return total
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3710,11 +4172,15 @@ def main(argv=None) -> int:
     table = timing_phase(forwards, paths, (flat, flat_counts), (extra, extra_kw, extra_out),
                          images, device, card)
     log(f"clocks after timing ({clocks}): {smi(clocks)}")
+    pad_launches = pad_phase(forwards, images, card, device)
     t0 = time.time()
     train_launches, _, train_calls = train_phase(args.seed, card, device)
     log(f"train phase: {time.time() - t0:.1f} s wall; the int_op_only CLI run launched "
         f"{train_launches}; all {len(train_calls)} kernel calls of chip_smoke's engine on the "
         f"trained checkpoint equal to their plain versions ({card})")
+    bf16_launches, bf16_calls = bf16train_phase(args.seed, images, card, device)
+    log(f"bf16train: the flag-trained bake's engine launched {bf16_launches}; all "
+        f"{len(bf16_calls)} kernel calls equal to their plain versions ({card})")
     dp_phase(args.seed, card, device)
     tpqat_launches = tpqat_phase(args.seed, card, device)
     mp_launches = mp_phase(forwards, images, card, args.seed, device)
@@ -3733,6 +4199,7 @@ def main(argv=None) -> int:
             library_ms=row["library_ms"], **extra_keys, serve_launches=serve_counts[name],
             tp_launches=mp_launches["tp"][name], pp_launches=mp_launches["pp"][name],
             xserve_launches=xserve_launches[name], tpqat_launches=tpqat_launches[name],
+            pad_launches=pad_launches[name], bf16train_launches=bf16_launches[name],
             by_path=row["by_path"],
         ))
     log(f"chip_smoke: {time.time() - t_script:.1f} s wall ({card})")

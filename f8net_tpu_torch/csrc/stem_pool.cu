@@ -1,6 +1,7 @@
 // K3: the fused ResNet stem -- 7x7/s2/p3 conv over 3 packed int8 channels,
 // + int32 bias, ReLU, 3x3/s2/p1 maxpool -- writing only the pooled int32
-// activation (n, ph, pw, 64).
+// activation (n, ph, pw, oc), oc a multiple of 64 (64 for ResNet's stem;
+// 128 once IntEngine(pad_channels_to=128) pads it).
 // Replaces f8net_tpu/ops/pallas_stem.py:stem_pool_int8_v2 (:252-316; body
 // _stem_kernel_v2 :212, _pool_finish :171, pallas_call :292) and the v1
 // stem_pool_int8 (:101; body _stem_kernel :55, pallas_call :143), which
@@ -15,11 +16,11 @@
 // leaves shared memory:
 //   * a block owns an 8 x 8 tile of pooled outputs of one image: the 17 x 17
 //     conv positions under it are the GEMM's rows (289, in 19 tiles of 16),
-//     its 64 output channels the columns;
+//     its group's 64 output channels the columns;
 //   * the reduction is 7 ky rows x 32 bytes: the 7 taps of one kernel row
 //     are 7 neighbouring pixels, contiguous in an input tile stored at 4
 //     bytes per pixel (3 channels + 1), padded to 8 pixels.  The weights are
-//     packed once on the host into that K-major layout, (64, 7 * 32) with
+//     packed once on the host into that K-major layout, (oc, 7 * 32) with
 //     zeros at the pad bytes (ops/stem.py:pack_stem_weight), so whatever
 //     the pad bytes of the input tile hold adds nothing;
 //   * mma.sync.m16n8k32 (mma_tile.cuh) rather than wgmma: wgmma's 64-row
@@ -29,6 +30,10 @@
 //     per row can express without an im2col copy in shared memory.  With
 //     the conv off the CUDA cores the kernel is bound by bytes, which is
 //     where its bound lies;
+//   * a block computes one 64-channel group of the output (blockIdx.y): a
+//     wider stem runs one group per grid row, each reading the same input
+//     tiles (3 bytes per pixel against 256 output bytes per pooled pixel
+//     per group);
 //   * blocks are persistent, two per SM: each walks pooled tiles with the
 //     next tile's input rows in flight (4-byte cp.async of the aligned words
 //     under each row) during this tile's products and pool; the 7 x 7 x 3
@@ -53,7 +58,7 @@ constexpr int kConvPos = kTC * kTC;     // conv positions per tile: GEMM rows
 constexpr int kMTiles = (kConvPos + 15) / 16;
 constexpr int kTI = 2 * (kTC - 1) + 7;  // input rows per tile
 constexpr int kTIW = kTI + 1;           // input pixels per tile row, incl. the 8th tap
-constexpr int kOC = 64;                 // stem output channels
+constexpr int kOC = 64;                 // output channels per block (one group)
 constexpr int kSK = 7 * 32;             // packed reduction: 7 ky x 8 pixels x 4 bytes
 constexpr int kWLD = kSK + 16;          // weight row stride in shared memory (bank spread)
 constexpr int kCLD = kOC + 4;           // conv-map row stride in int32 (bank spread)
@@ -66,7 +71,7 @@ constexpr size_t kRawBytes = sizeof(uint32_t) * kTI * kRawWords;
 constexpr size_t kStemSmem = kConvBytes + kIn4Bytes + kWBytes + 2 * kRawBytes;
 
 struct StemShape {
-  int n, h, w, oh, ow, ph, pw, tiles_x, tiles_y;
+  int n, h, w, oh, ow, ph, pw, tiles_x, tiles_y, oc;
 };
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src) {
@@ -116,6 +121,11 @@ __global__ void __launch_bounds__(kStemThreads, 2)
                      const int32_t* __restrict__ bias, int32_t* __restrict__ out, StemShape sh,
                      int pad_value) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // this block's 64-channel group: its weight rows, biases and output columns
+  const int group = blockIdx.y;
+  wp += static_cast<size_t>(group) * kOC * kSK;
+  bias += group * kOC;
+  out += group * kOC;
   int32_t* conv = reinterpret_cast<int32_t*>(smem);                        // [kConvPos][kCLD]
   uint32_t* in4 = reinterpret_cast<uint32_t*>(smem + kConvBytes);          // [kTI][kTIW]
   int8_t* wsm = reinterpret_cast<int8_t*>(smem + kConvBytes + kIn4Bytes);  // [kOC][kWLD]
@@ -220,18 +230,18 @@ __global__ void __launch_bounds__(kStemThreads, 2)
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx)
           m = max(m, conv[((2 * qy + dy) * kTC + 2 * qx + dx) * kCLD + o]);
-      out[((static_cast<size_t>(img) * sh.ph + py) * sh.pw + px) * kOC + o] = m;
+      out[((static_cast<size_t>(img) * sh.ph + py) * sh.pw + px) * sh.oc + o] = m;
     }
   }
 }
 
 }  // namespace f8
 
-// x: (n, h, wd, 3) int8; wp: (64, 224) int8, the packed weights
-// (ops/stem.py:pack_stem_weight); bias: (64,) int32 (already holding the
-// zero-point compensation); out: (n, ph, pw, 64) int32.
+// x: (n, h, wd, 3) int8; wp: (oc, 224) int8, the packed weights
+// (ops/stem.py:pack_stem_weight); bias: (oc,) int32 (already holding the
+// zero-point compensation); out: (n, ph, pw, oc) int32; oc % 64 == 0.
 extern "C" int f8_stem_pool(const void* x, const void* wp, const void* bias, void* out, int n,
-                            int h, int wd, int oh, int ow, int ph, int pw, int pad_value,
+                            int h, int wd, int oh, int ow, int ph, int pw, int oc, int pad_value,
                             void* stream) {
   // set once per process: the shared-memory attribute and the grid of
   // resident blocks it allows
@@ -251,10 +261,13 @@ extern "C" int f8_stem_pool(const void* x, const void* wp, const void* bias, voi
   }();
   if (init != cudaSuccess) return static_cast<int>(init);
   if (grid_max < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (oc < f8::kOC || oc % f8::kOC) return static_cast<int>(cudaErrorInvalidValue);
   const f8::StemShape sh{n, h, wd, oh, ow, ph, pw, (pw + f8::kTP - 1) / f8::kTP,
-                         (ph + f8::kTP - 1) / f8::kTP};
+                         (ph + f8::kTP - 1) / f8::kTP, oc};
   const int ntiles = n * sh.tiles_x * sh.tiles_y;
-  f8::stem_pool_kernel<<<std::min(ntiles, grid_max), f8::kStemThreads, f8::kStemSmem,
+  const int groups = oc / f8::kOC;  // grid rows; all groups' blocks resident at once
+  const dim3 grid(std::min(ntiles, std::max(grid_max / groups, 1)), groups);
+  f8::stem_pool_kernel<<<grid, f8::kStemThreads, f8::kStemSmem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(wp),
       static_cast<const int32_t*>(bias), static_cast<int32_t*>(out), sh, pad_value);

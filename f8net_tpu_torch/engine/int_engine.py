@@ -112,6 +112,7 @@ from ..ops import gemm_v2 as _gemm_v2
 from ..ops import ir_block as _ir
 from ..ops import stem as _stem
 from ..ops.fxp import INT32_MAX, fix_quant, pack_real, shift_requant, to_real_bf16, wrap_i32
+from ..quant.pad_channels import pad_channels
 from ..utils.device import resolve_device
 
 
@@ -180,15 +181,22 @@ class IntEngine:
     device: where the engine runs; "cuda" (the default) raises when there is
     no card.  int8_boundary / bf16_boundary: the relaxed rung (at most one);
     neither is the strict rung.  int_only=False: the float-dtype
-    cross-check (module docstring), strict rung only."""
+    cross-check (module docstring), strict rung only.  pad_channels_to=N
+    (integer engine only, as the reference's `int_engine.py:1495-1504`):
+    every channel count below N padded with zero weights to a multiple of
+    N before packing (quant.pad_channels), bit-exact; `model` and `graph`
+    are then the padded ones, and the routing follows the padded shapes."""
 
     def __init__(self, model, plan, int_params, cfg=None, device="cuda",
                  int8_boundary: bool = False, bf16_boundary: bool = False,
-                 int_only: bool = True):
+                 int_only: bool = True, pad_channels_to: int = 0):
         if int8_boundary and bf16_boundary:
             raise ValueError("int8_boundary and bf16_boundary exclude each other")
         if not int_only and (int8_boundary or bf16_boundary):
             raise ValueError("the boundary rungs need the integer engine (int_only=True)")
+        if int_only and pad_channels_to:
+            model, int_params = pad_channels(model, int_params, multiple=pad_channels_to,
+                                             threshold=pad_channels_to)
         self.int8_boundary, self.bf16_boundary = int8_boundary, bf16_boundary
         self.int_only = int_only
         self.device = resolve_device(device)

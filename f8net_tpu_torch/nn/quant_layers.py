@@ -17,9 +17,14 @@ clipping and no float scale.
 
 Float32 convolutions and matmuls run in full float32 on the card (TF32 off,
 `utils.float32_exact`): the batch-statistics conv reads fix_scaling * x,
-which lies on no grid, and TF32 would move sigma and so the fraclens.  The
-reference's `_conv2d_bf16` (`cfg.train_conv_bf16`) was the TPU MXU's
-one-pass trick and is not ported: the flag raises.
+which lies on no grid, and TF32 would move sigma and so the fraclens.
+`cfg.train_conv_bf16` (the reference's `_conv2d_bf16`) is the one
+exception, opted into: in train and calib mode, outside floating_wo_clip,
+both the batch-statistics conv and the output conv round their operands to
+bfloat16 and accumulate in float32 (`conv2d_bf16`).  On the card that conv
+runs on TF32 tensor cores, which hold bfloat16 values exactly, so every
+product is exact; its backward stays in full float32 on the unrounded
+operands, as the reference's custom VJP does.
 
 Data parallelism: given a process group, the training forward's batch
 statistics span the global batch that the group's processes hold in
@@ -51,7 +56,7 @@ from ..ops.fxp import (
     ste_quant,
 )
 from ..parallel.tp_train import WHOLE
-from ..utils.device import float32_exact
+from ..utils.device import float32_exact, tf32_conv
 from .pool import avgpool_shift_for
 from .spec import ConvBNSpec, LayerGraph, LinearSpec
 
@@ -223,15 +228,74 @@ def _quantize_input(graph, cfg, name, state, x, training: bool, group=None):
 # -- ConvBN -----------------------------------------------------------------------
 
 
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, spec: ConvBNSpec) -> torch.Tensor:
+    y = F.conv2d(
+        x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=spec.stride,
+        padding=spec.padding, groups=spec.groups,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, spec: ConvBNSpec) -> torch.Tensor:
     """NHWC x HWIO -> NHWC float conv (the reference's lax conv), in full
     float32 on the card."""
     with float32_exact():
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=spec.stride,
-            padding=spec.padding, groups=spec.groups,
+        return _conv_nhwc(x, w, spec)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to nearest-even onto bfloat16's grid and
+    carried in float32 (XLA's convert to bf16)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _require_tf32(device: torch.device) -> None:
+    """The flagged conv's contract on a card: TF32 tensor cores (sm_80 and
+    up); without them it raises rather than run the float32 conv."""
+    if torch.cuda.get_device_capability(device) < (8, 0):
+        raise RuntimeError(
+            f"train_conv_bf16: {torch.cuda.get_device_name(device)} has no TF32 tensor cores"
         )
-    return y.permute(0, 2, 3, 1)
+
+
+class Conv2dBF16Operands(torch.autograd.Function):
+    """The reference's `_conv2d_bf16` (f8net_tpu/nn/quant_layers.py:255-291):
+    x and w rounded to bfloat16, products accumulated in float32, a float32
+    output.  The rounded operands are exact in TF32 (10 mantissa bits
+    against bfloat16's 7), so on a card the conv runs on TF32 tensor cores
+    (`utils.device.tf32_conv`) and forms every product exactly; on the CPU it is
+    the plain float32 conv of the rounded operands.  Backward: the float32
+    conv's gradients (TF32 off) from the unrounded x and w, as the
+    reference's `_conv2d_bf16_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, w, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cuda":
+            _require_tf32(x.device)
+        with tf32_conv():
+            return _conv_nhwc(bf16_round(x), bf16_round(w), spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        spec = ctx.spec
+        need_x, need_w = ctx.needs_input_grad[:2]
+        with float32_exact():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None,
+                list(spec.stride), list(spec.padding), [1, 1], False, [0, 0], spec.groups,
+                [need_x, need_w, False],
+            )
+        return (None if gx is None else gx.permute(0, 2, 3, 1),
+                None if gw is None else gw.permute(2, 3, 1, 0), None)
+
+
+def conv2d_bf16(x: torch.Tensor, w: torch.Tensor, spec: ConvBNSpec) -> torch.Tensor:
+    """NHWC x HWIO -> NHWC conv of bfloat16-rounded operands with float32
+    accumulation and a float32 backward (Conv2dBF16Operands)."""
+    return Conv2dBF16Operands.apply(x, w, spec)
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -305,10 +369,10 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
     if not isinstance(spec, ConvBNSpec):
         raise TypeError(f"{name} is not a ConvBN layer")
     training = mode in ("train", "calib")
-    if training and cfg.train_conv_bf16 and not cfg.floating_wo_clip:
-        raise NotImplementedError(
-            "train_conv_bf16 (the TPU's one-pass bf16 training conv) is not ported"
-        )
+    # the reference's selection: never the plain-float32 baseline, whose
+    # operands lie on no quantization grid and whose contract is float32
+    conv = (conv2d_bf16 if training and cfg.train_conv_bf16 and not cfg.floating_wo_clip
+            else conv2d_nhwc)
     x = as_act(x_act).x
     p, eps = params[name], cfg.bn_eps
     gamma, beta = p["gamma"], p["beta"]
@@ -328,7 +392,7 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
 
     # -- BatchNorm statistics
     if training:
-        y0 = conv2d_nhwc(x_val if cfg.floating_wo_clip else fs_self * x_val, w, spec)
+        y0 = conv(x_val if cfg.floating_wo_clip else fs_self * x_val, w, spec)
         if group is None:
             bn_mean = torch.mean(y0, (0, 1, 2))
             var_b = torch.var(y0, (0, 1, 2), correction=0)
@@ -407,7 +471,7 @@ def conv_bn_apply(graph: LayerGraph, cfg, name: str, params, state, x_act, mode:
         out_fl = (w_fl + in_fl).reshape(-1)[:1]
         return Act(tp.gather(y / torch.exp2(out_fl), 3), out_fl), updates
 
-    return Act(tp.gather(conv2d_nhwc(x_val, w_q, spec) + bias, 3), None), updates
+    return Act(tp.gather(conv(x_val, w_q, spec) + bias, 3), None), updates
 
 
 def _weight_group(cfg, tp):

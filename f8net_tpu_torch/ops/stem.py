@@ -13,9 +13,11 @@ the engine's `b_zp` -- compensates every tap alike.
 
 The kernel computes the conv as an int8 GEMM on tensor cores over a
 reduction of 7 kernel rows x 8 pixels x 4 bytes (3 channels and a pad
-byte); `pack_stem_weight` lays the (7, 7, 3, 64) HWIO weights out in that
+byte); `pack_stem_weight` lays the (7, 7, 3, O) HWIO weights out in that
 order once, with zeros at every pad byte, and `IntEngine` passes them
-packed.
+packed.  O is ResNet's 64, or any multiple of 64 (128 where
+`IntEngine(pad_channels_to=128)` pads the stem): the kernel runs one
+64-channel group per grid row.
 
 `stem_pool` launches the kernel for CUDA tensors and raises on what it does
 not take; for CPU tensors it runs `stem_pool_plain`, which computes from the
@@ -43,12 +45,13 @@ def stem_out_hw(h: int, w: int):
 
 
 def pack_stem_weight(w: torch.Tensor) -> torch.Tensor:
-    """(7, 7, 3, 64) HWIO int8 -> (64, STEM_K) K-major int8, on w's device:
+    """(7, 7, 3, O) HWIO int8 -> (O, STEM_K) K-major int8, on w's device:
     packed[o, 32 ky + 4 kx + c] = w[ky, kx, c, o] for kx < 7 and c < 3, 0
     at the pad bytes (kx = 7, c = 3)."""
-    p = torch.zeros((64, 7, 8, 4), dtype=torch.int8, device=w.device)
+    o = w.shape[3]
+    p = torch.zeros((o, 7, 8, 4), dtype=torch.int8, device=w.device)
     p[:, :, :7, :3] = w.permute(3, 0, 1, 2)
-    return p.reshape(64, STEM_K)
+    return p.reshape(o, STEM_K)
 
 
 def _stem_acc_packed(x: torch.Tensor, wp: torch.Tensor, pad_value: int) -> torch.Tensor:
@@ -68,7 +71,7 @@ def _stem_acc_packed(x: torch.Tensor, wp: torch.Tensor, pad_value: int) -> torch
     ]
     a = torch.cat(rows, dim=3).reshape(n * oh * ow, STEM_K)
     acc = torch.matmul(a, wp.to(torch.float64).t())
-    return acc.reshape(n, oh, ow, 64).permute(0, 3, 1, 2)
+    return acc.reshape(n, oh, ow, wp.shape[0]).permute(0, 3, 1, 2)
 
 
 def stem_pool_plain(
@@ -88,7 +91,7 @@ def stem_pool_plain(
     return pooled.to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def stem_pool_check(
@@ -100,10 +103,12 @@ def stem_pool_check(
     weights."""
     req = _build.require
     req(x.dtype == torch.int8 and w.dtype == torch.int8, "stem_pool: x and w must be int8")
-    req(bias.dtype == torch.int32 and bias.shape == (64,), "stem_pool: bias (64,) int32")
+    o = w.shape[-1] if w.ndim == 4 else w.shape[0]
+    req(o >= 64 and o % 64 == 0, f"stem_pool: needs O % 64 == 0, got {o}")
+    req(bias.dtype == torch.int32 and bias.shape == (o,), f"stem_pool: bias ({o},) int32")
     req(x.ndim == 4 and x.shape[3] == 3, "stem_pool: x must be (n, h, w, 3)")
-    req(tuple(w.shape) in ((7, 7, 3, 64), (64, STEM_K)),
-        f"stem_pool: w must be (7, 7, 3, 64) HWIO or (64, {STEM_K}) packed")
+    req(tuple(w.shape) in ((7, 7, 3, o), (o, STEM_K)),
+        f"stem_pool: w must be (7, 7, 3, {o}) HWIO or ({o}, {STEM_K}) packed")
     if w.ndim == 4:
         w = pack_stem_weight(w)
     req(-128 <= pad_value <= 127, "stem_pool: pad_value is an int8")
@@ -116,9 +121,9 @@ def stem_pool(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *, pad_value: int = 0
 ) -> torch.Tensor:
     """K3 on the tensors' device: the CUDA kernel on a card, the plain
-    version on the CPU.  `w` is (7, 7, 3, 64) HWIO (packed here, on every
-    call) or (64, STEM_K) packed by pack_stem_weight (once, by the
-    caller)."""
+    version on the CPU.  `w` is (7, 7, 3, O) HWIO (packed here, on every
+    call) or (O, STEM_K) packed by pack_stem_weight (once, by the caller),
+    O a multiple of 64."""
     if x.device.type == "cpu":
         return stem_pool_plain(x, w, bias, pad_value=pad_value)
     req = _build.require
@@ -127,12 +132,12 @@ def stem_pool(
     w = stem_pool_check(x, w, bias, pad_value=pad_value)
     n, h, wd, _ = x.shape
     oh, ow, ph, pw = stem_out_hw(h, wd)
-    out = torch.empty((n, ph, pw, 64), dtype=torch.int32, device=x.device)
+    out = torch.empty((n, ph, pw, w.shape[0]), dtype=torch.int32, device=x.device)
     lib, fn = _build.kernel("stem_pool", "f8_stem_pool", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            n, h, wd, oh, ow, ph, pw, pad_value, _build.stream_of(x),
+            n, h, wd, oh, ow, ph, pw, w.shape[0], pad_value, _build.stream_of(x),
         )
     _build.check(lib, rc, "stem_pool")
     stem_pool.launches += 1

@@ -36,3 +36,21 @@ def float32_exact():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+@contextlib.contextmanager
+def tf32_conv():
+    """Within the block, cuDNN convolutions may run on TF32 tensor cores,
+    whatever the caller set (float32_exact included); the caller's setting
+    comes back on exit.  The bf16-operand training conv
+    (`nn.quant_layers.conv2d_bf16`) runs under it: its operands lie on
+    bfloat16's grid, which TF32 holds exactly, so every product is exact
+    and only the float32 accumulation rounds.  It switches the same legacy
+    flag as float32_exact, never torch's newer precision settings, which
+    some torch versions refuse to mix with it."""
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn

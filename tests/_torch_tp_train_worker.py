@@ -1,7 +1,7 @@
 """One rank of tests/test_torch_tp_train.py's four-process run (gloo on the
 CPU).
 
-    python tests/_torch_tp_train_worker.py <port> <rank> <world> <outdir>
+    python tests/_torch_tp_train_worker.py <port> <rank> <world> <outdir> [bf16]
 
 Joins the group through `parallel.init_dist`, builds every mesh of
 MESHES[world] in order (every rank builds every mesh; the test runs a
@@ -15,7 +15,9 @@ mode, a floating_wo_clip step of a MobileNetV2 at 32 px, the eval forward
 of tests/test_parallel.py's TP case.  Each rank writes what
 it computed to <outdir>/w<world>-rank<r>.pt: a step's params and momentum, gathered
 whole, as digests (every rank) and as tensors where the tests read them
-(rank 0 alone: a ResNet-18's tree is 45 MB).  Imports no JAX.
+(rank 0 alone: a ResNet-18's tree is 45 MB).  With `bf16` (world 2,
+tests/test_torch_bf16_conv.py) it runs one thing on (1, 2): a QAT train
+step with `train_conv_bf16`.  Imports no JAX.
 """
 
 import hashlib
@@ -51,6 +53,7 @@ QAT = dict(format_from_metric=True, metric="std")
 TRAIN_KW = dict(lr=0.01, weight_decay=4e-5, momentum=0.9, nesterov=True, topk=(1,))
 FLOAT_STEPS = 2
 PER_CHANNEL = dict(QAT, format_type="per_channel")
+QAT_BF16 = dict(QAT, train_conv_bf16=True)
 # layer chains whose train-mode forward and backward the tests compare
 # with one process's: (name, config, family, layers, input shape); all on
 # the model line of (1, 2), CHAINS_AT_4 on (1, 4)'s too
@@ -67,6 +70,7 @@ CHAINS = (
      ("stage_1_layer_0.body.0", "stage_1_layer_0.body.1", "stage_1_layer_0.body.2"),
      (4, 8, 8, 16)),
 )
+LAYOUT_FAMILIES = ("resnet18", "resnet50", "mobilenet_v2", "mobilenet_v1")
 CHAINS_AT_4 = ("r18-qat-per-channel", "r18-qat-classifier", "mbv2-qat-block")
 
 
@@ -116,11 +120,11 @@ def _rows(mesh, *arrays):
 
 
 def layouts(mesh):
-    """param_shardings and int_param_shardings of ResNet-18 and
-    MobileNetV2 (10 classes) on this mesh, tp_layers, and the layouts
-    without tensor_parallel."""
+    """param_shardings and int_param_shardings of each of LAYOUT_FAMILIES
+    (10 classes) on this mesh, tp_layers, and the layouts without
+    tensor_parallel."""
     out = {}
-    for family in ("resnet18", "mobilenet_v2"):
+    for family in LAYOUT_FAMILIES:
         model, (params, _) = init(QAT, family, size=32)
         out[family] = dict(
             params=param_shardings(model.graph, params, mesh, tensor_parallel=True),
@@ -262,10 +266,15 @@ def run(mesh):
 
 def main():
     port, rank, world, outdir = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    bf16 = sys.argv[5:] == ["bf16"]
     torch.set_num_threads(1)
     init_dist(f"tcp://127.0.0.1:{port}", rank, world, backend="gloo")
-    meshes = [make_mesh(d, m, device="cpu") for d, m in MESHES[world]]
-    res = {shape: run(mesh) for shape, mesh in zip(MESHES[world], meshes) if mesh.member}
+    if bf16:
+        res = {(1, 2): dict(qat_bf16_steps=train_steps(QAT_BF16, make_mesh(1, 2, device="cpu"),
+                                                       1, keep=(1,)))}
+    else:
+        meshes = [make_mesh(d, m, device="cpu") for d, m in MESHES[world]]
+        res = {shape: run(mesh) for shape, mesh in zip(MESHES[world], meshes) if mesh.member}
     torch.save(res, os.path.join(outdir, f"w{world}-rank{rank}.pt"))
     torch.distributed.destroy_process_group()
     print(f"rank {rank}: ok")

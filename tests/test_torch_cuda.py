@@ -885,3 +885,84 @@ def test_qat_train_forward_on_the_card_vs_cpu(dev, name):
                     torch.testing.assert_close(v.cpu(), w, rtol=1e-5, atol=1e-6)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("o", [128, 192])
+def test_stem_pool_kernel_wide(dev, o):
+    """K3 at more than 64 output channels (IntEngine(pad_channels_to=128)
+    pads ResNet's stem to 128): one 64-channel group per grid row, on
+    part-filled tiles and at batch 64, HWIO and packed weights."""
+    for n, h, w in ((2, 40, 52), (64, 224, 224)):
+        rng = np.random.RandomState(n + o)
+        x, wt = _int8(rng, (n, h, w, 3)), _int8(rng, (7, 7, 3, o), -127)
+        b = torch.from_numpy(rng.randint(-(1 << 16), 1 << 16, o).astype(np.int32))
+        want = stem_pool_plain(x.to(dev), wt.to(dev), b.to(dev), pad_value=-128)
+        for wk in (wt.to(dev), pack_stem_weight(wt.to(dev))):
+            got = stem_pool(x.to(dev), wk, b.to(dev), pad_value=-128)
+            torch.cuda.synchronize()
+            assert got.shape == (n, (h + 3) // 4, (w + 3) // 4, o) and torch.equal(got, want)
+
+
+def test_bf16_training_conv_vs_cpu(dev):
+    """The flagged training conv (cfg.train_conv_bf16) at ResNet-18's 3x3
+    stage-1 shape (K = 1152), batch 8 at 28x28, on the card against its
+    plain version on the CPU: on small-grid operands (every partial sum
+    exact in float32) both bitwise the float64 conv; on arbitrary operands
+    the card's forward (TF32 tensor cores) within 2^-14 of each output's
+    sqrt(sum of squared products) of the float64 conv of the rounded
+    operands, and its backward (full float32, TF32 off) within 1e-5
+    relative L2 of the CPU's; the caller's TF32 switch as it was."""
+    from f8net_tpu_torch.nn import quant_layers as ql
+    from f8net_tpu_torch.nn.spec import ConvBNSpec
+
+    spec = ConvBNSpec(name="t", in_ch=128, out_ch=128, kernel=(3, 3), stride=(1, 1),
+                      padding=(1, 1))
+    conv64 = lambda a, b: torch.nn.functional.conv2d(
+        a.permute(0, 3, 1, 2), b.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    rng = np.random.RandomState(11)
+    xg = torch.from_numpy(rng.randint(0, 8, (8, 28, 28, 128)).astype(np.float32) / 8)
+    wg = torch.from_numpy(rng.randint(-3, 4, (3, 3, 128, 128)).astype(np.float32) / 4)
+    for d in ("cpu", dev):
+        with ql.float32_exact():
+            y = ql.conv2d_bf16(xg.to(d), wg.to(d), spec).cpu()
+        assert torch.equal(y.double(), conv64(xg.double(), wg.double())), d
+    x = torch.from_numpy(np.abs(rng.standard_normal((8, 28, 28, 128))).astype(np.float32) * 3)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 128, 128)).astype(np.float32) * 0.05)
+    g = torch.from_numpy(rng.standard_normal((8, 28, 28, 128)).astype(np.float32))
+    grads = {}
+    for d in ("cpu", dev):
+        tx = x.to(d, copy=True).requires_grad_(True)
+        tw = w.to(d, copy=True).requires_grad_(True)
+        with ql.float32_exact():
+            y = ql.conv2d_bf16(tx, tw, spec)
+            (y * g.to(d)).sum().backward()
+            assert not torch.backends.cudnn.allow_tf32
+        grads[d] = (y.detach().cpu(), tx.grad.cpu(), tw.grad.cpu())
+    xb, wb = ql.bf16_round(x).double(), ql.bf16_round(w).double()
+    err = (grads[dev][0].double() - conv64(xb, wb)).abs() / conv64(xb * xb, wb * wb).sqrt()
+    assert float(err.max()) <= 2.0**-14
+    for a, b in zip(grads[dev][1:], grads["cpu"][1:]):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+def test_padded_mobilenet_v2_forward(dev):
+    """One MobileNetV2 forward at 64 px through IntEngine(pad_channels_to=
+    64) on the card: every kernel call equal to its plain version, the
+    logits bitwise the unpadded engine's, launches as the padded routing's
+    table (K7 takes the widened 1x1 GEMMs)."""
+    import chip_smoke
+    from f8net_tpu_torch.engine import IntEngine
+
+    images = torch.from_numpy(np.random.RandomState(3).rand(2, 64, 64, 3).astype(np.float32))
+    model, plan, params, _ = chip_smoke.load_synthetic_model(
+        3, 64, 10, dev, images.to(dev), model_name="mobilenet_v2"
+    )
+    base = IntEngine(model, plan, params, device=dev)
+    eng = IntEngine(model, plan, params, device=dev, pad_channels_to=64)
+    x = eng.condition_input(images)
+    logits, ref, counts, calls, _ = chip_smoke.engine_phase(eng, x)
+    chip_smoke.check_logits(logits, ref, 2, 10)
+    for name, args, kw in calls:
+        chip_smoke.compare(name, args, kw)
+    assert torch.equal(logits, base(x))
+    assert {k: v for k, v in counts.items() if v} == eng.launch_table()

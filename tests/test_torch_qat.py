@@ -357,13 +357,6 @@ def test_pools_and_residual_add():
     np.testing.assert_array_equal(got.fl.numpy(), np.asarray(want.fl))
 
 
-def test_train_conv_bf16_is_not_ported(layers):
-    _, pg, params, state, xs = layers
-    with pytest.raises(NotImplementedError, match="train_conv_bf16"):
-        ql.conv_bn_apply(pg, QuantConfig(**CFG, train_conv_bf16=True), "a", _t(params),
-                         _t(state), torch.from_numpy(xs["a"]), "train")
-
-
 # -- the whole train-mode forward ----------------------------------------------------
 
 

@@ -259,3 +259,60 @@ def test_tools_phase_on_cpu(capsys):
     assert "tools: folded_weight_stats of 20 convs within rtol 1e-6" in out
     assert "tools: profile_table of the card's fraclen report: 21 layers" in out
     assert "the CPU copy's table the same text" in out
+
+
+def test_pad_phase_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's pad phase on the CPU at 32 px, batch 2, ResNet-18 and
+    MobileNetV2 in every rung: the padded engines' calls against their plain
+    versions, logits bitwise the unpadded engine's, the calls the padded
+    routing's table; ResNet-18 pads nothing at 64; not the card's times."""
+    paths = {p: chip_smoke.LAUNCHES_PER_FORWARD[p] for p in ("resnet18", "mobilenet_v2")}
+    monkeypatch.setattr(chip_smoke, "LAUNCHES_PER_FORWARD", paths)
+    monkeypatch.setattr(chip_smoke, "BATCH", 2)
+    images = torch.from_numpy(np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32))
+    forwards = {}
+    for path in paths:
+        model, plan, params, _ = chip_smoke.load_synthetic_model(0, 32, 10, "cpu", images,
+                                                                 model_name=path)
+        for rung in (None, *chip_smoke.RUNGS):
+            forwards[(path, rung)] = (IntEngine(model, plan, params, device="cpu",
+                                                **({rung: True} if rung else {})),)
+    launches = chip_smoke.pad_phase(forwards, images, "cpu", "cpu")
+    assert launches == {name: 0 for name in chip_smoke.KERNELS}
+    out = capsys.readouterr().out
+    for want in ("resnet18 strict pad 64: no channel below 64",
+                 "resnet18 bf16 pad 128: 7 layers widened; all 21 kernel calls equal",
+                 "mobilenet_v2 int8 pad 64: 14 layers widened; all 29 kernel calls equal",
+                 "'int8_gemm_v2': 10, 'ir_block': 12, 'int8_gemm': 1}", "pad phase:"):
+        assert want in out, want
+    # MobileNetV2's rungs were padded at 64: at 128 the strict rung alone
+    assert "mobilenet_v2 strict pad 128:" in out and "mobilenet_v2 int8 pad 128" not in out
+
+
+def test_bf16train_phase_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's bf16train phase on the CPU at 32 px, batch 4, 16
+    classes: every distinct QAT conv of ResNet-18 and MobileNetV2 with the
+    flag within its bound of the float64 conv of the rounded operands, the
+    train config's steps with the flag off and on, the flag-trained bake's
+    engine against its plain path; not the card's times."""
+    for name, value in dict(IMAGE_SIZE=32, TRAIN_BATCH=4, BATCH=2, BF16_ROUND_STEPS=1,
+                            TRAIN_SYNTHETIC=16, TRAIN_WORKERS=1,
+                            TRAIN_OVERRIDES={"image_size": 32, "num_classes": 16}).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    images = torch.from_numpy(np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32))
+    counts, checked = chip_smoke.bf16train_phase(0, images, "cpu", "cpu")
+    assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    names = [c[0] for c in checked]
+    assert {n: names.count(n) for n in set(names)} == chip_smoke.LAUNCHES_PER_FORWARD["resnet18"]
+    out = capsys.readouterr().out
+    rows = [ln for ln in out.splitlines() if ln.startswith("bf16train conv ")]
+    assert all("small-grid operands bitwise the float64 conv" in ln for ln in rows)
+    for path, layers in (("resnet18", 20), ("mobilenet_v2", 52)):  # every QAT conv once
+        mine = [ln for ln in rows if ln.startswith(f"bf16train conv {path} ")]
+        assert sum(int(ln.split("(x")[1].split(":")[0]) for ln in mine) == layers, path
+    assert all("cudnn.benchmark off), bound 6.104e-05; the float32 conv" in ln for ln in rows)
+    for want in ("bf16train conv resnet18 3->64 7x7/s2 at 32x32 (x1: head)",
+                 "resnet18 bf16-trained engine: logits bitwise equal to the plain path",
+                 "bf16train: the flag-trained ResNet-18 baked", "bf16train phase:",
+                 "bf16train: run.main with train_conv_bf16 in its YAML trained"):
+        assert want in out, want

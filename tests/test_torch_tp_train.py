@@ -10,8 +10,9 @@ same time, (1, 2) and (2, 1) in a group of two, from shared inits on
 seeded global batches, and saves what each rank computed, params and
 momentum gathered whole; the tests here read the ranks' results:
   * param_shardings and int_param_shardings equal to JAX's PartitionSpecs
-    leaf by leaf at model 2 and 4 (ResNet-18 and MobileNetV2, 10 classes:
-    the classifier stays whole at model 4, the depthwise layers always);
+    leaf by leaf at model 2 and 4 (ResNet-18, ResNet-50, MobileNetV2 and
+    MobileNetV1, 10 classes: the classifier stays whole at model 4, the
+    depthwise layers always);
   * shard_params then gather_params gives the tree back;
   * the floating_wo_clip step of a ResNet-18 at 16 px (10 classes, global
     batch 16) against the port's one process and JAX's mesh step, with the
@@ -224,7 +225,7 @@ def _spec_axis(spec):
     return axes[0] if axes else None
 
 
-@pytest.mark.parametrize("family", ["resnet18", "mobilenet_v2"])
+@pytest.mark.parametrize("family", worker.LAYOUT_FAMILIES)
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["model2", "model4"])
 def test_layout_equals_jax_param_shardings(run, family, shape):
     """param_shardings (tensor_parallel and not) and int_param_shardings
@@ -252,9 +253,8 @@ def test_layout_equals_jax_param_shardings(run, family, shape):
     assert got["layers"] == cut
     assert all(v is None for sub in got["replicated"].values() for v in sub.values())
     assert all(sub["alpha"] is None for sub in got["params"].values())
-    if family == "mobilenet_v2":
-        dw = {s.name for s in model.graph if getattr(s, "is_depthwise", False)}
-        assert len(dw) == 17 and not dw & cut
+    dw = {s.name for s in model.graph if getattr(s, "is_depthwise", False)}
+    assert len(dw) == {"mobilenet_v2": 17, "mobilenet_v1": 13}.get(family, 0) and not dw & cut
     assert ("classifier" in cut) == (shape[1] == 2)
 
 

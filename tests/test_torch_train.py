@@ -276,16 +276,6 @@ def test_trainer_overfits_tiny_batch():
             np.testing.assert_array_equal(after[lname][k], v)
 
 
-def test_train_conv_bf16_raises():
-    tcfg = TrainConfig(batch_size=2, topk=(1,), num_classes=10)
-    cfg = QuantConfig(**QAT, train_conv_bf16=True)
-    model = get_model("resnet18", cfg, num_classes=10, image_size=16)
-    tr = Trainer(model, cfg, tcfg, device="cpu")
-    params, state, opt = tr.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="train_conv_bf16"):
-        tr.run_epoch(params, state, opt, [_batch(0, n=2, size=16)], 0, 1, "train")
-
-
 def test_checkpoints_cross_packages(tmp_path):
     """A port checkpoint loads in the JAX package and a JAX one in the
     port: the same keys, the arrays bitwise, the sidecar equal; the trees
